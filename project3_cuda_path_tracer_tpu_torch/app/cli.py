@@ -1,0 +1,115 @@
+"""Headless CLI: `python -m project3_cuda_path_tracer_tpu_torch SCENE.txt`.
+
+Counterpart of project3_cuda_path_tracer_tpu/app/cli.py (reference
+semantics: src/main.cpp:33-97): progressive render to the scene's
+ITERATIONS budget, save `<outdir>/<FILE>.png` and exit. The flags are the
+JAX CLI's that the ported slice covers, plus `--device`. Every other JAX
+flag exits with code 2 and names the ROADMAP slice that will port it; none
+is silently ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+_SLICE_B = "slice B (NEE)"
+_SLICE_D = "slice D (textures and environment)"
+_SLICE_E = "slice E (integrator features)"
+_SLICE_F = "slice F (render services)"
+_SLICE_H = "slice H (the app)"
+# JAX CLI flag -> why the port does not take it yet
+UNPORTED_FLAGS = {
+    "--sort": _SLICE_E, "--compact": _SLICE_E,
+    "--russian-roulette": _SLICE_E, "--nee": _SLICE_B,
+    "--nee-ris": _SLICE_E, "--restir": _SLICE_E, "--restir-cap": _SLICE_E,
+    "--sampler": _SLICE_E, "--clamp": _SLICE_E, "--gamma": _SLICE_E,
+    "--aces": _SLICE_E, "--bilinear": _SLICE_D, "--bilinear-fast": _SLICE_D,
+    "--adaptive": _SLICE_F, "--adaptive-epoch": _SLICE_F,
+    "--denoise": _SLICE_F, "--checkpoint-every": _SLICE_F,
+    "--resume": _SLICE_F, "--sharded": "slice G (sharding)",
+    "--preview": _SLICE_H, "--snapshot-every": _SLICE_H,
+    "--timestamp-name": _SLICE_H, "--debug-nans": _SLICE_H,
+    "--no-bake": "no slice: XLA constant baking has no counterpart (the "
+                 "scene table is a kernel input)",
+    "--megakernel": "no slice: every iteration already runs the CUDA "
+                    "megakernel on --device cuda",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m project3_cuda_path_tracer_tpu_torch",
+        description="Path tracer, PyTorch + CUDA port (primitive scenes)")
+    p.add_argument("scene", help="scene file (reference text format)")
+    p.add_argument("--iterations", type=int, default=None,
+                   help="override the scene's ITERATIONS")
+    p.add_argument("--depth", type=int, default=None,
+                   help="override the scene's DEPTH (trace depth)")
+    p.add_argument("--out", default=None,
+                   help="output basename (default: scene FILE field)")
+    p.add_argument("--outdir", default=".", help="output directory")
+    p.add_argument("--hdr", action="store_true", help="write Radiance .hdr")
+    p.add_argument("--no-antialias", action="store_true",
+                   help="disable stochastic AA jitter")
+    p.add_argument("--stratified", action="store_true",
+                   help="stratified sampling (per-pixel rotated lattice "
+                        "camera and BSDF draws)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics", action="store_true",
+                   help="emit a JSON-line metrics record to stderr")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to render (default cuda; never chosen for "
+                        "you: cuda without a card is an error)")
+    return p
+
+
+def main(argv=None) -> int:
+    args, rest = build_parser().parse_known_args(argv)
+    for tok in rest:
+        flag = tok.split("=", 1)[0]
+        if flag in UNPORTED_FLAGS:
+            print(f"{flag} is not ported to the torch package yet: "
+                  f"{UNPORTED_FLAGS[flag]} (ROADMAP.md Queue 1); use "
+                  "python -m project3_cuda_path_tracer_tpu for it",
+                  file=sys.stderr)
+            return 2
+    if rest:
+        build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
+
+    from ..render.integrator import Renderer
+    from ..scene.parser import load_scene
+    from ..utils.device import synchronize
+    from ..utils.metrics import RenderMetrics
+
+    scene = load_scene(args.scene)
+    st = scene.settings
+    if args.iterations is not None:
+        st.iterations = args.iterations
+    if args.depth is not None:
+        st.trace_depth = args.depth
+    st.antialias = not args.no_antialias
+    st.stratified = args.stratified
+    st.seed = args.seed
+    os.makedirs(args.outdir, exist_ok=True)
+    base = os.path.join(args.outdir, args.out or st.image_name)
+
+    renderer = Renderer(scene, device=args.device)
+    w, h = scene.camera.resolution
+    metrics = RenderMetrics(width=w, height=h, trace_depth=st.trace_depth)
+    print(f"rendering {args.scene}: {w}x{h}, {st.iterations} iterations, "
+          f"depth {st.trace_depth}, device={renderer.device}",
+          file=sys.stderr)
+    metrics.start()
+    renderer.step_many(st.iterations)
+    synchronize(renderer.device)
+    metrics.stop(st.iterations)
+    out = renderer.save(base, hdr=args.hdr)
+    print(f"saved {out}", file=sys.stderr)
+    if args.metrics:
+        metrics.emit(final=True, output=out, device=str(renderer.device))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

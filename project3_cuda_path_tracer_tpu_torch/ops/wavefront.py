@@ -1,0 +1,462 @@
+"""Planar wavefront stages in torch ops: ray generation, intersection, shading.
+
+Counterpart of the primitive path of project3_cuda_path_tracer_tpu/ops/
+wavefront.py, function for function and with the same arithmetic, so that
+the tests can hold each stage against the JAX one on the same inputs. These
+stages are the plain version of the CUDA megakernel (csrc/megakernel.cu):
+`render.integrator.trace_wavefront` chains them into one iteration.
+
+Scope: cubes and spheres, untextured albedo, a constant environment, the
+optional glossy Phong lobe, Fresnel refraction. Meshes, SDFs, textures, the
+procedural sky, NEE, dispersion, bump and normal maps come with later slices.
+
+Reference: src/intersections.h:27-144 (slab + quadratic in object space,
+world-distance t, 1e-4 back-off) and scatterRay, src/interactions.h:44-79.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from . import vec
+from .vec import V3
+from ..scene import types as T
+from ..utils.math import SQRT_OF_ONE_THIRD, TWO_PI, RAY_EPS
+
+BIG = 1e30
+_U32 = 0xFFFFFFFF
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Ray generation (reference: src/pathtrace.cu:122-143)
+# ---------------------------------------------------------------------------
+
+def _hash01(idx: torch.Tensor, salt: int) -> torch.Tensor:
+    """Per-pixel uniform in [0,1) from an integer hash (the JAX `_hash01`).
+    uint32 wraparound is emulated in int64: every product of a value below
+    2^32 with the 27-bit multiplier fits, and `& 0xFFFFFFFF` wraps it."""
+    x = (idx.to(torch.int64) & _U32) ^ (salt & _U32)
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _U32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _U32
+    x = x ^ (x >> 16)
+    return (x & 0x00FFFFFF).to(F32) * (1.0 / (1 << 24))
+
+
+# R_d rank-1 lattices (Roberts 2018): the i-th point is frac(0.5 + i*ALPHA).
+_R2A = (0.7548776662466927, 0.5698402909980532)
+_R4A = (0.8566748838545029, 0.7338918566271259,
+        0.6287067210378086, 0.5385972572236101)
+_PHI_INV = 0.6180339887498949
+_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 4: _R4A}
+
+# "depth" slot of the camera dims (distinct from every bounce depth)
+CAMERA_SLOT = 0x7FFFFFFF
+# salts of the stratified draws (ops/wavefront.py and render/integrator.py
+# of the JAX package)
+SALT_AA = 0x68BC21EB
+SALT_LENS = 0x51633E2D
+SALT_TIME = 0x3504F333
+SALT_BOUNCE = 0x2545F491
+
+
+def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
+                      num_dims: int, salt0: int) -> Tuple[torch.Tensor, ...]:
+    """`num_dims` stratified uniform planes for (iteration, depth, pixel):
+    CP-rotated R_d lattices (the JAX "lattice" impl), bit for bit."""
+    dev = pixel_index.device
+    it_f = torch.as_tensor(iteration, dtype=F32, device=dev)
+    mix = (pixel_index.to(torch.int64) & _U32) ^ (
+        (int(depth) * 0x9E3779B9) & _U32)
+    return tuple(
+        torch.fmod(0.5 + it_f * torch.tensor(a, dtype=F32, device=dev)
+                   + _hash01(mix, salt0 + 101 * k), 1.0)
+        for k, a in enumerate(_ALPHAS[num_dims][:num_dims]))
+
+
+def generate_rays_planar(cam: dict, width: int, height: int,
+                         generator: Optional[torch.Generator] = None,
+                         antialias: bool = True, dof: bool = True,
+                         motion: bool = True, stratified: bool = False,
+                         iteration=None, cam_u: Optional[torch.Tensor] = None):
+    """Primary rays as (origin V3, dir V3, time [N], pixel_index [N]), path i
+    at pixel (i % W, i // W).
+
+    Camera draws (AA jitter x/y, lens disk r/phi, shutter time) come from,
+    in this order of precedence: `cam_u` [5, N] injected uniforms in that
+    row order; the stratified lattice when `stratified` and `iteration` is
+    given; else `torch.rand` on `generator`."""
+    dev = cam["position"].device
+    n = width * height
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    xi, yi = idx % width, idx // width
+    pixel_index = xi + yi * width
+    x = xi.to(F32)
+    y = yi.to(F32)
+    strat = stratified and iteration is not None
+
+    def draw(num, salt, row):
+        if cam_u is not None:
+            return tuple(cam_u[row + i] for i in range(num))
+        if strat:
+            return stratified_planes(iteration, CAMERA_SLOT, pixel_index,
+                                     num, salt)
+        u = torch.rand((num * n,), generator=generator, dtype=F32, device=dev)
+        return tuple(u[i * n:(i + 1) * n] for i in range(num))
+
+    if antialias:
+        u_ax, u_ay = draw(2, SALT_AA, 0)
+        x = x + u_ax
+        y = y + u_ay
+
+    view, right, up = (vec.from_rows(cam[k]) for k in ("view", "right", "up"))
+    plx, ply = cam["pixel_length"][0], cam["pixel_length"][1]
+    sx = plx * (x - width * 0.5)
+    sy = ply * (y - height * 0.5)
+    d = vec.normalize(V3(view.x - right.x * sx - up.x * sy,
+                         view.y - right.y * sx - up.y * sy,
+                         view.z - right.z * sx - up.z * sy))
+    o = vec.splat(cam["position"], like=x)
+
+    if dof:
+        aperture, focal = cam["aperture"], cam["focal_distance"]
+        u_l0, u_l1 = draw(2, SALT_LENS, 2)
+        r = torch.sqrt(u_l0) * aperture
+        phi = u_l1 * TWO_PI
+        lr, lu = r * torch.cos(phi), r * torch.sin(phi)
+        o_dof = V3(o.x + right.x * lr + up.x * lu,
+                   o.y + right.y * lr + up.y * lu,
+                   o.z + right.z * lr + up.z * lu)
+        f = torch.clamp(focal, min=1e-6)
+        focus = V3(o.x + d.x * f, o.y + d.y * f, o.z + d.z * f)
+        d_dof = vec.normalize(focus - o_dof)
+        use_dof = (aperture > 0.0) & (focal > 0.0)
+        o = vec.where(use_dof, o_dof, o)
+        d = vec.where(use_dof, d_dof, d)
+
+    if motion:
+        (u_t,) = draw(1, SALT_TIME, 4)
+        times = u_t * cam["shutter"]
+    else:
+        times = torch.zeros((n,), dtype=F32, device=dev)
+    return o, d, times, pixel_index
+
+
+# ---------------------------------------------------------------------------
+# Intersection
+# ---------------------------------------------------------------------------
+
+class HitP(NamedTuple):
+    """Planar hit record. `point` is the 1e-4 backed-off hit point
+    (getPointOnRay, src/intersections.h:27-29) that reflected and diffuse
+    rays continue from; `surf` is the exact surface point that transmitted
+    rays push through."""
+    t: torch.Tensor        # [N]; -1 = miss (after intersect_planar)
+    normal: V3
+    mat_id: torch.Tensor   # [N] int64
+    point: V3
+    surf: V3
+    outside: torch.Tensor  # [N] bool
+
+
+def _nz(c: torch.Tensor) -> torch.Tensor:
+    """Exact-zero direction components bumped to +-1e-12: slab decisions
+    are those of 1/0 = inf, and 1/x's derivative stays finite."""
+    return torch.where(c.abs() < 1e-12,
+                       torch.where(c < 0, -1e-12, 1e-12).to(c.dtype), c)
+
+
+def _box_local_planar(qo: V3, qd: V3):
+    """Unit-cube slab test (src/intersections.h:48-90) with the axis
+    argmax/argmin written as comparison selects (x > y > z tie priority)."""
+    inv = V3(1.0 / _nz(qd.x), 1.0 / _nz(qd.y), 1.0 / _nz(qd.z))
+    t1 = V3((-0.5 - qo.x) * inv.x, (-0.5 - qo.y) * inv.y,
+            (-0.5 - qo.z) * inv.z)
+    t2 = V3((0.5 - qo.x) * inv.x, (0.5 - qo.y) * inv.y, (0.5 - qo.z) * inv.z)
+    ta = V3(*(torch.minimum(a, b) for a, b in zip(t1, t2)))
+    tb = V3(*(torch.maximum(a, b) for a, b in zip(t1, t2)))
+    one = torch.ones_like(qo.x)
+    sign = V3(*(torch.where(b < a, one, -one) for a, b in zip(t1, t2)))
+    neg_big = torch.full_like(qo.x, -BIG)
+    tap = V3(*(torch.where(a > 0, a, neg_big) for a in ta))
+    tmin = torch.maximum(tap.x, torch.maximum(tap.y, tap.z))
+    tmax = torch.minimum(tb.x, torch.minimum(tb.y, tb.z))
+
+    hit = (tmax >= tmin) & (tmax > 0)
+    outside = tmin > 0
+    t_obj = torch.where(outside, tmin, tmax)
+    ex = torch.where(outside, tap.x == tmin, tb.x == tmax)
+    ey = (~ex) & torch.where(outside, tap.y == tmin, tb.y == tmax)
+    ez = ~(ex | ey)
+    zero = torch.zeros_like(qo.x)
+    n_local = V3(torch.where(ex, sign.x, zero), torch.where(ey, sign.y, zero),
+                 torch.where(ez, sign.z, zero))
+    return t_obj, hit, outside, n_local
+
+
+def _sphere_local_planar(qo: V3, qd: V3):
+    """r=0.5 sphere quadratic (src/intersections.h:102-144); the
+    discriminant sqrt is double-where'd so miss lanes never take sqrt of
+    a clamped zero."""
+    v_dot_d = vec.dot(qo, qd)
+    radicand = v_dot_d * v_dot_d - (vec.dot(qo, qo) - 0.25)
+    has_root = radicand >= 0
+    s = torch.sqrt(torch.where(has_root, torch.clamp(radicand, min=0.0),
+                               torch.ones_like(radicand)))
+    t1 = -v_dot_d + s
+    t2 = -v_dot_d - s
+    both_neg = (t1 < 0) & (t2 < 0)
+    both_pos = (t1 > 0) & (t2 > 0)
+    t_obj = torch.where(both_pos, torch.minimum(t1, t2),
+                        torch.maximum(t1, t2))
+    return t_obj, has_root & ~both_neg, both_pos
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c rounded once, as a fused multiply-add: the float32 product is
+    exact in float64, so only the sum rounds (twice, float64 then float32;
+    that differs from a true FMA only at rare exact ties).
+
+    The hit points need it. Object-space distances to a thin slab are ~100x
+    the world ones (cornell's walls are scaled by 0.01), so the product
+    t*dir reaches ~1e3, where a float32 rounding step (6e-5) eats most of
+    the 1e-4 back-off: rounded separately, the continuation point lands on
+    the wrong side of the surface often enough to shift cornell's image
+    mean by ~5%. The JAX package's result depends on whether XLA fuses the
+    expression (ROADMAP.md Queue 3); the CUDA kernel calls fmaf."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
+                          g: int, gtype: int) -> HitP:
+    """One primitive against the whole wavefront, elementwise."""
+    inv = geoms.inverse_transform[g]
+    fwd = geoms.transform[g]
+    inv_tr = geoms.inverse_transpose[g]
+    vel = geoms.velocity[g]
+    velx, vely, velz = vel[0], vel[1], vel[2]
+
+    o_shift = V3(o.x - velx * times, o.y - vely * times, o.z - velz * times)
+    qo = vec.xform_pt(inv, o_shift)
+    qd = vec.normalize(vec.xform_dir(inv, d))
+
+    if gtype == T.CUBE:
+        t_obj, hit, outside, n_local = _box_local_planar(qo, qd)
+    else:
+        t_obj, hit, outside = _sphere_local_planar(qo, qd)
+
+    tb = t_obj - RAY_EPS
+    ip_obj = V3(*(_fma(tb, q, p) for q, p in zip(qd, qo)))
+    sf_obj = V3(*(_fma(t_obj, q, p) for q, p in zip(qd, qo)))
+    ip_world = vec.xform_pt(fwd, ip_obj)
+    ip_world = V3(ip_world.x + velx * times, ip_world.y + vely * times,
+                  ip_world.z + velz * times)
+    sf_world = vec.xform_pt(fwd, sf_obj)
+    sf_world = V3(sf_world.x + velx * times, sf_world.y + vely * times,
+                  sf_world.z + velz * times)
+    t_world = vec.norm(o - ip_world)
+
+    if gtype != T.CUBE:
+        flip = torch.where(outside, 1.0, -1.0).to(F32)
+        n_local = V3(ip_obj.x * flip, ip_obj.y * flip, ip_obj.z * flip)
+    normal = vec.normalize(vec.xform_dir(inv_tr, n_local))
+    return HitP(t=torch.where(hit, t_world, torch.full_like(t_world, BIG)),
+                normal=normal,
+                mat_id=geoms.material_id[g].to(torch.int64).expand_as(
+                    t_world),
+                point=ip_world, surf=sf_world, outside=outside)
+
+
+def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
+                     geom_types: Sequence[int]) -> HitP:
+    """Nearest hit over all primitives (src/pathtrace.cu:176-199): a strict
+    `<` merge in geom order, then misses become t = -1, material 0."""
+    for gtype in geom_types:
+        if gtype not in (T.CUBE, T.SPHERE):
+            raise NotImplementedError(
+                "only cube and sphere geoms are ported (meshes: ROADMAP "
+                "slice C; SDFs: slice E)")
+    n = o.x.shape[0]
+    z = torch.zeros((n,), dtype=F32, device=o.x.device)
+    best = HitP(t=torch.full((n,), BIG, dtype=F32, device=o.x.device),
+                normal=V3(z, z, z),
+                mat_id=torch.zeros((n,), dtype=torch.int64,
+                                   device=o.x.device),
+                point=V3(z, z, z), surf=V3(z, z, z),
+                outside=torch.ones((n,), dtype=torch.bool, device=o.x.device))
+    for g, gtype in enumerate(geom_types):
+        cand = _primitive_hit_planar(o, d, times, geoms, g, gtype)
+        closer = cand.t < best.t
+        best = HitP(t=torch.where(closer, cand.t, best.t),
+                    normal=vec.where(closer, cand.normal, best.normal),
+                    mat_id=torch.where(closer, cand.mat_id, best.mat_id),
+                    point=vec.where(closer, cand.point, best.point),
+                    surf=vec.where(closer, cand.surf, best.surf),
+                    outside=torch.where(closer, cand.outside, best.outside))
+    miss = best.t >= BIG
+    return best._replace(t=torch.where(miss, -1.0, best.t),
+                         mat_id=torch.where(miss, 0, best.mat_id))
+
+
+# ---------------------------------------------------------------------------
+# Shading (reference contract: src/interactions.h:44-79, pathtrace.cu:224-266)
+# ---------------------------------------------------------------------------
+
+class ShadeOutP(NamedTuple):
+    origin: V3
+    direction: V3
+    throughput: V3
+    radiance: V3
+    alive: torch.Tensor
+
+
+def _mat_select(table: torch.Tensor, mat_id: torch.Tensor):
+    """Per-lane material fetch from an [M] or [M,3] table."""
+    rows = table[mat_id]
+    if table.ndim == 1:
+        return rows
+    return V3(rows[:, 0], rows[:, 1], rows[:, 2])
+
+
+def cosine_hemisphere_planar(n: V3, u1, u2) -> V3:
+    """calculateRandomDirectionInHemisphere (src/interactions.h:10-42)."""
+    up = torch.sqrt(u1)
+    over = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    around = u2 * TWO_PI
+    pick_x = n.x.abs() < SQRT_OF_ONE_THIRD
+    pick_y = (~pick_x) & (n.y.abs() < SQRT_OF_ONE_THIRD)
+    not_n = V3(pick_x.to(F32), pick_y.to(F32), (~(pick_x | pick_y)).to(F32))
+    p1 = vec.normalize(vec.cross(n, not_n))
+    p2 = vec.normalize(vec.cross(n, p1))
+    c = torch.cos(around) * over
+    s = torch.sin(around) * over
+    return V3(up * n.x + c * p1.x + s * p2.x,
+              up * n.y + c * p1.y + s * p2.y,
+              up * n.z + c * p1.z + s * p2.z)
+
+
+def reflect_planar(d: V3, n: V3) -> V3:
+    k = 2.0 * vec.dot(d, n)
+    return V3(d.x - k * n.x, d.y - k * n.y, d.z - k * n.z)
+
+
+def _pow5(x: torch.Tensor) -> torch.Tensor:
+    """x**5 as jax.lax.integer_pow evaluates it: x * ((x*x) * (x*x))."""
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
+                 materials: T.Materials, textures: T.Textures,
+                 uniforms: Sequence[torch.Tensor],
+                 last_bounce: torch.Tensor, glossy: bool = True) -> ShadeOutP:
+    """One scattering step over the wavefront; `uniforms` holds the four
+    planes (u_lobe, u1, u2, u_fresnel). The plain branch of the JAX
+    `shade_planar` with sky off and no NEE.
+
+    Detach convention: the lobe and Fresnel decisions and the diffuse
+    direction are detached; the mirror, refraction and glossy directions
+    keep their dependence on the materials (the training slice relies on
+    it)."""
+    mat_id = hit.mat_id
+    albedo = _mat_select(materials.color, mat_id)
+    spec_color = _mat_select(materials.specular_color, mat_id)
+    emittance = _mat_select(materials.emittance, mat_id)
+    p_refr = torch.clamp(_mat_select(materials.has_refractive, mat_id),
+                         0.0, 1.0)
+    p_spec = (torch.clamp(_mat_select(materials.has_reflective, mat_id),
+                          0.0, 1.0) * (1.0 - p_refr))
+    p_diff = torch.clamp(1.0 - p_refr - p_spec, min=0.0)
+    ior = _mat_select(materials.ior, mat_id)
+
+    hit_ok = hit.t > 0.0
+    is_light = hit_ok & (emittance > 0.0)
+    missed = ~hit_ok
+
+    e = textures.env[0, 0].to(hit.t.device) * textures.env_enabled.to(
+        hit.t.device)
+    env = vec.splat(e, like=hit.t)
+
+    lit = alive & is_light
+    mis = alive & missed
+    zero = torch.zeros_like(hit.t)
+    rad_scale = torch.where(lit, emittance, zero)
+    radiance = V3(*(torch.where(lit, th * al * rad_scale,
+                                torch.where(mis, th * en, zero))
+                    for th, al, en in zip(throughput, albedo, env)))
+
+    u_lobe = uniforms[0].detach()
+    take_refr = u_lobe < p_refr
+    take_spec = (~take_refr) & (u_lobe < p_refr + p_spec)
+
+    n = hit.normal
+    d_diff = cosine_hemisphere_planar(n, uniforms[1], uniforms[2])
+    d_spec = reflect_planar(ray_d, n)
+
+    if glossy:
+        # Phong cos^n lobe around the mirror axis (SPECEX > 0)
+        spec_exp = _mat_select(materials.specular_exponent, mat_id)
+        cos_a = torch.pow(torch.clamp(uniforms[1], 1e-9, 1.0),
+                          1.0 / (spec_exp + 1.0))
+        sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=1e-20))
+        phi_g = uniforms[2] * TWO_PI
+        pick_gx = d_spec.x.abs() < SQRT_OF_ONE_THIRD
+        pick_gy = (~pick_gx) & (d_spec.y.abs() < SQRT_OF_ONE_THIRD)
+        not_s = V3(pick_gx.to(F32), pick_gy.to(F32),
+                   (~(pick_gx | pick_gy)).to(F32))
+        g1 = vec.normalize(vec.cross(d_spec, not_s))
+        g2 = vec.cross(d_spec, g1)
+        cg = torch.cos(phi_g) * sin_a
+        sg = torch.sin(phi_g) * sin_a
+        d_gloss = V3(cos_a * d_spec.x + cg * g1.x + sg * g2.x,
+                     cos_a * d_spec.y + cg * g1.y + sg * g2.y,
+                     cos_a * d_spec.z + cg * g1.z + sg * g2.z)
+        above = vec.dot(d_gloss, n) > 0.0
+        d_gloss = vec.where(above, d_gloss, d_spec)
+        d_spec = vec.where(spec_exp > 0.0, d_gloss, d_spec)
+
+    outside = hit.outside
+    safe_ior = torch.clamp(ior, min=1e-6)
+    one = torch.ones_like(ior)
+    eta = torch.where(outside, 1.0 / safe_ior, safe_ior)
+    cos_i = torch.clamp(-vec.dot(ray_d, n), 0.0, 1.0)
+    eta_i = torch.where(outside, one, ior)
+    eta_t = torch.where(outside, ior, one)
+    q = (eta_i - eta_t) / (eta_i + eta_t)
+    r0 = q * q
+    fres = r0 + (1.0 - r0) * _pow5(1.0 - cos_i)
+
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-20))
+    k_r = eta * cos_i - cos_t
+    d_refr = V3(eta * ray_d.x + k_r * n.x,
+                eta * ray_d.y + k_r * n.y,
+                eta * ray_d.z + k_r * n.z)
+    refl_instead = tir | (uniforms[3].detach() < fres.detach())
+    d_refr = vec.where(refl_instead, d_spec, d_refr)
+
+    d_diff = V3(*(c.detach() for c in d_diff))
+    new_dir = vec.normalize(vec.where(take_refr, d_refr,
+                                      vec.where(take_spec, d_spec, d_diff)))
+
+    inv_pd = 1.0 / torch.clamp(p_diff, min=1e-6)
+    inv_ps = 1.0 / torch.clamp(p_spec, min=1e-6)
+    inv_pr = 1.0 / torch.clamp(p_refr, min=1e-6)
+    factor = vec.where(take_refr, spec_color * inv_pr,
+                       vec.where(take_spec, spec_color * inv_ps,
+                                 albedo * inv_pd))
+
+    scattering = alive & hit_ok & ~is_light
+    new_throughput = vec.where(scattering, throughput * factor, throughput)
+
+    # transmitted rays start just past the EXACT surface point; reflected and
+    # diffuse rays keep the backed-off point (the safe side of the surface)
+    transmit = take_refr & ~refl_instead
+    push = torch.where(transmit, 2.0 * RAY_EPS, 0.0).to(F32)
+    new_origin = V3(*(torch.where(transmit, s, p) + push * nd
+                      for s, p, nd in zip(hit.surf, hit.point, new_dir)))
+    return ShadeOutP(origin=new_origin, direction=new_dir,
+                     throughput=new_throughput, radiance=radiance,
+                     alive=scattering & ~last_bounce)

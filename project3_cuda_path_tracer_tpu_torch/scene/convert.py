@@ -1,0 +1,58 @@
+"""Carry scene parameters over from the JAX package as NumPy arrays.
+
+The JAX package's tables are pytrees of jax arrays; `np.asarray` of each
+`Materials`/`Geoms` leaf and of `Camera.flat()` gives plain dicts of NumPy
+arrays, which this module turns into the port's `Scene` without importing
+jax. The tests use it to feed both packages the same parameters.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import types as T
+
+_MATERIAL_KEYS = ("color", "specular_exponent", "specular_color",
+                  "has_reflective", "has_refractive", "ior", "emittance",
+                  "dispersion")
+_GEOM_KEYS = ("type", "material_id", "transform", "inverse_transform",
+              "inverse_transpose", "velocity", "mesh_id")
+
+
+def _tensor(a, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype))
+
+
+def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
+                     settings: Optional[T.RenderSettings] = None, *,
+                     resolution: tuple) -> T.Scene:
+    """Build a port `Scene` from NumPy tables.
+
+    `materials`/`geoms` map the JAX dataclass field names to arrays (a
+    missing `dispersion` is zeros); `camera` is the JAX `Camera.flat()` dict
+    (position, view, up, right, pixel_length, aperture, focal_distance,
+    shutter); `resolution` is (width, height), which `flat()` does not carry.
+    """
+    n_mat = np.asarray(materials["color"]).shape[0]
+    mats = {k: _tensor(materials[k], np.float32)
+            for k in _MATERIAL_KEYS if materials.get(k) is not None}
+    mats.setdefault("dispersion", torch.zeros((n_mat,), dtype=T.F32))
+    ints = ("type", "material_id", "mesh_id")
+    geom_t = {k: _tensor(geoms[k], np.int32 if k in ints else np.float32)
+              for k in _GEOM_KEYS}
+
+    c = {k: np.asarray(v, np.float32) for k, v in camera.items()}
+    w, h = resolution
+    # fovy follows from pixel_length = 2 tan(fovy)/h (Camera.derive)
+    fovy = float(np.degrees(np.arctan(c["pixel_length"][1] * h / 2.0)))
+    cam = T.Camera(
+        resolution=(int(w), int(h)), position=c["position"],
+        look_at=c["position"] + c["view"], up=c["up"], view=c["view"],
+        right=c["right"], pixel_length=c["pixel_length"], fovy=fovy,
+        aperture=float(c["aperture"]),
+        focal_distance=float(c["focal_distance"]),
+        shutter=float(c["shutter"]))
+    return T.Scene(camera=cam, settings=settings or T.RenderSettings(),
+                   materials=T.Materials(**mats), geoms=T.Geoms(**geom_t))

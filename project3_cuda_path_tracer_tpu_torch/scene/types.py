@@ -1,0 +1,179 @@
+"""Scene data model: host camera/settings + structure-of-arrays tensor tables.
+
+Counterpart of project3_cuda_path_tracer_tpu/scene/types.py. Tables are
+torch tensors with the JAX package's shapes ([M,3], [G,4,4], ...), built on
+the CPU by the parser; a renderer moves what it needs to its own device
+(ops/megakernel.pack_scene). Only the primitive slice is ported: `Textures`
+and `MeshBundle` exist in their empty forms, which is all a primitive scene
+carries.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils import math as m
+
+# GeomType (reference: src/sceneStructs.h:10-13)
+SPHERE = 0
+CUBE = 1
+MESH = 2
+SDF = 3
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+@dataclass
+class Materials:
+    """SoA material table (reference: src/sceneStructs.h:31-41); leading dim M."""
+    color: torch.Tensor              # [M,3]
+    specular_exponent: torch.Tensor  # [M]
+    specular_color: torch.Tensor     # [M,3]
+    has_reflective: torch.Tensor     # [M] specular lobe probability
+    has_refractive: torch.Tensor     # [M] refractive lobe probability
+    ior: torch.Tensor                # [M]
+    emittance: torch.Tensor          # [M]
+    dispersion: Optional[torch.Tensor] = None  # [M]
+
+
+@dataclass
+class Geoms:
+    """SoA geometry table (reference: src/sceneStructs.h:20-29). Canonical
+    primitives are the r=0.5 sphere and the [-0.5,0.5]^3 cube in object
+    space; `velocity` is the motion-blur translation per unit shutter time."""
+    type: torch.Tensor               # [G] int32
+    material_id: torch.Tensor        # [G] int32
+    transform: torch.Tensor          # [G,4,4]
+    inverse_transform: torch.Tensor  # [G,4,4]
+    inverse_transpose: torch.Tensor  # [G,4,4]
+    velocity: torch.Tensor           # [G,3]
+    mesh_id: torch.Tensor            # [G] int32; -1 for primitives
+
+
+@dataclass
+class MeshBundle:
+    """Empty form only: meshes arrive with the mesh slice."""
+    tri_v0: torch.Tensor
+
+    @staticmethod
+    def empty() -> "MeshBundle":
+        return MeshBundle(tri_v0=torch.zeros((1, 3), dtype=F32))
+
+
+@dataclass
+class Textures:
+    """Empty form only (textures and environments arrive with the texture
+    slice). The fields are the ones `ops.megakernel.supports` and the plain
+    shader read: a 1x1 atlas/env, the constant env gate, no bump/normal
+    maps, no procedural sky."""
+    atlas: torch.Tensor         # [1,1,3]
+    tex_id: torch.Tensor        # [M] int32, -1 = untextured
+    env: torch.Tensor           # [1,1,3]
+    env_enabled: torch.Tensor   # [] float32
+    sky: torch.Tensor           # [14] float32; sky[0] > 0 enables it
+    bump: torch.Tensor          # [M,2] float32
+    nrm_id: torch.Tensor        # [M] int32, -1 = none
+
+    @staticmethod
+    def none(num_materials: int) -> "Textures":
+        n = max(num_materials, 1)
+        return Textures(
+            atlas=torch.zeros((1, 1, 3), dtype=F32),
+            tex_id=-torch.ones((n,), dtype=I32),
+            env=torch.zeros((1, 1, 3), dtype=F32),
+            env_enabled=torch.zeros((), dtype=F32),
+            sky=torch.zeros((14,), dtype=F32),
+            bump=torch.zeros((n, 2), dtype=F32),
+            nrm_id=-torch.ones((n,), dtype=I32),
+        )
+
+
+@dataclass
+class Camera:
+    """Host-side camera (reference: src/sceneStructs.h:43-52); NumPy fields.
+
+    Derived quantities follow Scene::loadCamera (src/scene.cpp:132-142):
+      yscaled = tan(fovy deg); xscaled = yscaled * resx / resy
+      pixel_length = (2*xscaled/resx, 2*yscaled/resy)
+      view = normalize(lookAt - position)
+    Extensions: thin-lens DoF (aperture, focal_distance) and shutter time."""
+    resolution: tuple  # (w, h)
+    position: np.ndarray
+    look_at: np.ndarray
+    up: np.ndarray
+    view: np.ndarray = None
+    right: np.ndarray = None
+    fov: np.ndarray = None
+    pixel_length: np.ndarray = None
+    fovy: float = 45.0
+    aperture: float = 0.0
+    focal_distance: float = 0.0
+    shutter: float = 0.0
+
+    def derive(self) -> "Camera":
+        w, h = self.resolution
+        yscaled = np.tan(self.fovy * (m.PI / 180.0))
+        xscaled = yscaled * w / h
+        fovx = np.arctan(xscaled) * 180.0 / m.PI
+        self.fov = np.array([fovx, self.fovy], dtype=np.float32)
+        self.pixel_length = np.array(
+            [2.0 * xscaled / w, 2.0 * yscaled / h], dtype=np.float32)
+        self.view = m.normalize(np.asarray(self.look_at) - np.asarray(self.position))
+        r = np.cross(self.view, np.asarray(self.up, dtype=np.float32))
+        self.right = m.normalize(r)
+        self.up = m.normalize(np.cross(self.right, self.view))
+        self.position = np.asarray(self.position, dtype=np.float32)
+        self.look_at = np.asarray(self.look_at, dtype=np.float32)
+        return self
+
+    def flat(self, device: torch.device | str = "cpu") -> dict:
+        """Dict of float32 tensors on `device` (the JAX `flat()` pytree)."""
+        def t(v):
+            return torch.tensor(np.asarray(v, np.float32), device=device)
+        return dict(
+            position=t(self.position), view=t(self.view), up=t(self.up),
+            right=t(self.right), pixel_length=t(self.pixel_length),
+            aperture=t(self.aperture), focal_distance=t(self.focal_distance),
+            shutter=t(self.shutter))
+
+
+@dataclass
+class RenderSettings:
+    """The render settings the primitive slice reads
+    (reference: src/sceneStructs.h:54-60)."""
+    iterations: int = 5000
+    trace_depth: int = 8
+    image_name: str = "render"
+    antialias: bool = True
+    # Per-pixel Cranley-Patterson-rotated lattice draws keyed on (iteration,
+    # depth, pixel) instead of the pseudo-random stream (ops/wavefront).
+    stratified: bool = False
+    seed: int = 0
+
+
+@dataclass
+class Scene:
+    """Parsed scene: host camera/settings + CPU tensor tables."""
+    camera: Camera
+    settings: RenderSettings
+    materials: Materials
+    geoms: Geoms
+    meshes: MeshBundle = field(default_factory=MeshBundle.empty)
+    textures: Optional[Textures] = None
+    source_path: str = ""
+
+    def __post_init__(self):
+        if self.textures is None:
+            self.textures = Textures.none(int(self.materials.color.shape[0]))
+
+    @property
+    def num_geoms(self) -> int:
+        return int(self.geoms.type.shape[0])
+
+    @property
+    def num_materials(self) -> int:
+        return int(self.materials.color.shape[0])

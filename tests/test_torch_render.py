@@ -1,0 +1,149 @@
+"""The torch port's slice end to end: Renderer, CLI, and the jax-free import.
+
+With `stratified=True` every draw of an iteration is a deterministic hash of
+(iteration, depth, pixel), the same in both packages, so the port's
+Renderer on the CPU (which runs iteration_plain) must reproduce the JAX
+package's render_radiance lane by lane, under the lane contract of
+tests/test_torch_megakernel.py. With the pseudo-random samplers the streams
+differ, so only image means are compared.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from project3_cuda_path_tracer_tpu import load_scene as jax_load_scene
+from project3_cuda_path_tracer_tpu import Renderer as JaxRenderer
+from project3_cuda_path_tracer_tpu.render import integrator as JI
+from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+from project3_cuda_path_tracer_tpu_torch.app import cli
+from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+from project3_cuda_path_tracer_tpu_torch.utils.device import resolve_device
+from test_torch_megakernel import assert_lane_contract
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = os.path.join(REPO, "scenes")
+
+
+def _sized(load, name, res, depth):
+    s = load(os.path.join(SCENES, name + ".txt"))
+    s.camera.resolution = (res, res)
+    s.camera.derive()
+    s.settings.trace_depth = depth
+    return s
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell_dof"])
+def test_stratified_render_matches_jax(name):
+    """24x24, depth 4, AA on, 2 iterations: the port's Renderer(device=
+    "cpu") against JAX render_radiance(iteration=i) summed over i."""
+    res, depth, iters = 24, 4, 2
+    js = _sized(jax_load_scene, name, res, depth)
+    js.settings.stratified = True
+    cfg = JI.build_trace_config(js, js.settings)
+    render = jax.jit(lambda it: JI.render_radiance(
+        js.materials, js.camera.flat(), js.geoms, js.meshes, js.textures,
+        jax.random.PRNGKey(0), cfg, iteration=it))
+    want = sum(np.asarray(render(jnp.int32(i))) for i in range(iters))
+
+    ps = _sized(load_scene, name, res, depth)
+    ps.settings.stratified = True
+    r = Renderer(ps, device="cpu")
+    got = r.render(iters).numpy()
+    assert r.iteration == iters and got.shape == (res, res, 3)
+    n = res * res
+    assert_lane_contract(got.reshape(n, 3).T, want.reshape(n, 3).T)
+
+
+def test_pseudo_random_render_mean_matches_jax():
+    """32x32, 64 spp, depth 4: the port's torch.Generator stream against the
+    JAX default stream. The per-iteration image mean of this scene has a
+    standard deviation of ~0.02, so each 64-spp mean has a standard error
+    of ~0.0026 and their difference ~0.004; 0.02 is five of those."""
+    res, depth, spp = 32, 4, 64
+    js = _sized(jax_load_scene, "cornell", res, depth)
+    want = np.asarray(JaxRenderer(js).render(spp)).mean(axis=(0, 1)) / spp
+    ps = _sized(load_scene, "cornell", res, depth)
+    got = Renderer(ps, device="cpu").render(spp).mean(dim=(0, 1)).numpy()
+    np.testing.assert_allclose(got / spp, want, atol=0.02)
+
+
+def test_renderer_counts_no_launches_on_cpu():
+    ps = _sized(load_scene, "sphere", 8, 2)
+    before = mk.LAUNCHES
+    r = Renderer(ps, device="cpu")
+    r.step_many(3)
+    assert r.iteration == 3 and mk.LAUNCHES == before
+    img = r.image()
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+
+
+def test_cuda_device_is_never_substituted():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the error without one")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(load_scene(os.path.join(SCENES, "cornell.txt")),
+                 device="cuda")
+    with pytest.raises(ValueError):
+        resolve_device("gpu")
+
+
+def test_renderer_refuses_unsupported_scene():
+    scene = load_scene(os.path.join(SCENES, "cornell_glossy.txt"))
+    with pytest.raises(NotImplementedError, match="SPECEX"):
+        Renderer(scene, device="cpu")
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import project3_cuda_path_tracer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+        "                                      'project3_cuda_path_tracer_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cli_end_to_end(tmp_path, capsys):
+    with open(os.path.join(SCENES, "cornell.txt")) as f:
+        text = f.read().replace("RES         800 800", "RES         32 32")
+    scene = tmp_path / "cornell32.txt"
+    scene.write_text(text)
+    rc = cli.main([str(scene), "--device", "cpu", "--iterations", "2",
+                   "--depth", "2", "--outdir", str(tmp_path), "--metrics"])
+    assert rc == 0
+    png = tmp_path / "cornell.png"
+    assert png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    rec = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert rec["iters"] == 2 and rec["resolution"] == [32, 32]
+    assert rec["trace_depth"] == 2 and rec["output"] == str(png)
+
+
+@pytest.mark.parametrize("flag", ["--nee", "--sharded", "--denoise",
+                                  "--clamp=0.5"])
+def test_cli_unported_flag_exits_2(flag, capsys):
+    rc = cli.main([os.path.join(SCENES, "cornell.txt"), flag])
+    assert rc == 2
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_cli_unknown_flag_exits_2():
+    with pytest.raises(SystemExit) as exc:
+        cli.main([os.path.join(SCENES, "cornell.txt"), "--no-such-flag"])
+    assert exc.value.code == 2
