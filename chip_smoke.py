@@ -4,12 +4,17 @@
     python3 chip_smoke.py [--outdir DIR]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-It builds the port's CUDA kernel from csrc/, holds it against its plain
-torch version at the main path's shapes, drives the main path (cornell,
-800x800, depth 8, through `Renderer` and the CLI) and times kernel and plain
-version. Every phase raises on failure, so any failure exits non-zero.
-Without a card, or without the rest of the repository beside it, it exits
-non-zero before printing any result.
+It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
+once) and drives two paths, each through `Renderer` and the CLI:
+  - cornell, 800x800, depth 8: the megakernel (K1), held against its plain
+    torch version at the path's shapes;
+  - scenes/mesh.txt, 1024x1024, depth 8, the 81,920-triangle blob: the
+    wavefront route, whose BVH traversals are K2 (8-wide tree) or, with the
+    binary packing, K3 and K4; each is held against its plain version on
+    aimed rays, the primary rays and one diffuse bounce of the blob.
+Kernel and plain version are timed in turns. Every phase raises on failure,
+so any failure exits non-zero. Without a card, or without the rest of the
+repository beside it, it exits non-zero before printing any result.
 
 Output, on stdout: progress lines, one JSON line per timing, the card's
 name and power limit as nvidia-smi reports them, a `{"kernels": [...]}`
@@ -18,6 +23,8 @@ line, and last `{"ok": true, "device": {...}}`. The PNGs go to --outdir.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,6 +39,8 @@ PKG = "project3_cuda_path_tracer_tpu_torch"
 SCENE = os.path.join(ROOT, "scenes", "cornell.txt")
 GLASS = os.path.join(ROOT, "scenes", "cornell_glass.txt")
 GOLDEN = os.path.join(ROOT, "tests", "golden_cornell_64x64_8spp_seed123.npz")
+MESH = os.path.join(ROOT, "scenes", "mesh.txt")
+MESH_GEOM = 3  # the blob's geom index in scenes/mesh.txt
 
 # Lane contract of tests/test_megakernel.py: kernel and plain version are
 # separately compiled programs. nvcc contracts multiply-adds into FMAs and
@@ -113,9 +122,9 @@ def kernel_vs_plain(scene, sampler: str, iteration: int, atol: float,
     return compare_lanes(tag, got, want, atol, frac)
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warm: int = 3) -> float:
     """Mean ms per call over `iters` calls, by CUDA events, after warm-up."""
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -126,6 +135,299 @@ def time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def traversal_check(tag: str, got, want, pops=None) -> dict:
+    """A traversal kernel's (t, normal, u, v, tri) against a plain version's
+    on the same rays: tri equal on >= 1-FRAC of the lanes; t, normal and uv
+    to ATOL on the lanes that agree and hit; per-ray pop counts (`pops` =
+    (kernel, plain)) equal on >= 1-FRAC."""
+    g = torch.stack([got[0], *got[1], got[2], got[3]])
+    w = torch.stack([want[0], *want[1], want[2], want[3]])
+    agree = got[4] == want[4]
+    hit = agree & (got[4] >= 0)
+    err = float((g - w)[:, hit].abs().max()) if bool(hit.any()) else 0.0
+    rec = dict(check=tag, lanes=int(agree.numel()), hits=int(hit.sum()),
+               tri_agree=float(agree.float().mean()), atol=ATOL,
+               max_abs_err=err)
+    if pops is not None:
+        rec["pops_agree"] = float((pops[0] == pops[1]).float().mean())
+        rec["mean_pops"] = float(pops[0].float().mean())
+    log(json.dumps(rec))
+    if rec["tri_agree"] < 1 - FRAC or rec.get("pops_agree", 1.0) < 1 - FRAC:
+        raise AssertionError(f"{tag}: lanes disagree ({rec})")
+    if err > ATOL:
+        raise AssertionError(f"{tag}: hit attributes differ by {err}")
+    return rec
+
+
+def aimed_rays(n: int, dev, seed: int = 0):
+    """Object-space rays from random origins on a radius-3 sphere aimed
+    near the blob's centre (the generator of tests/test_bvh8.py), and an
+    unbounded t_bound."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(3, n)).astype(np.float32)
+    o /= np.linalg.norm(o, axis=0, keepdims=True)
+    o *= 3.0
+    d = rng.uniform(-0.4, 0.4, size=(3, n)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    planes = [torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+              for c in (*o, *d)]
+    return (tuple(planes[:3]), tuple(planes[3:]),
+            torch.full((n,), 1e30, device=dev))
+
+
+def mesh_wavefronts(r):
+    """The blob's traversal inputs (qo, qd, t_bound) for the 1024x1024
+    primary rays of mesh.txt (stratified draws, iteration 0) and for one
+    diffuse bounce of them (dead lanes bounded by -1), on the card."""
+    from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import V3
+    materials, cam, geoms, textures = r.tables
+    cfg = r.cfg
+    o, d, times, pix = wf.generate_rays_planar(
+        cam, cfg.width, cfg.height, antialias=cfg.antialias, dof=cfg.dof,
+        motion=cfg.motion, stratified=True, iteration=0)
+    bounce0 = wf.mesh_query(o, d, times, geoms, MESH_GEOM)
+    hit = wf.intersect_planar(o, d, times, geoms, cfg.geom_types,
+                              r.packed_meshes, cfg.mesh_ids)
+    n = cfg.width * cfg.height
+    one = torch.ones((n,), device=o.x.device)
+    out = wf.shade_planar(
+        hit, d, V3(one, one, one), torch.ones_like(one, dtype=torch.bool),
+        materials, textures, wf.stratified_planes(0, 0, pix, 4,
+                                                  wf.SALT_BOUNCE),
+        last_bounce=torch.zeros_like(one, dtype=torch.bool),
+        glossy=cfg.glossy)
+    bounce1 = wf.mesh_query(out.origin, out.direction, times, geoms,
+                            MESH_GEOM, alive=out.alive)
+    return bounce0, bounce1
+
+
+def device_share(r, name: str) -> dict:
+    """One iteration of `r` under torch.profiler: the device time of the
+    kernels whose name holds `name` against all device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    total = part = 0.0
+    kernels = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        total += t
+        kernels += ev.count
+        if name in ev.key:
+            part += t
+    if total == 0:
+        return dict(profile="not measured: no device events")
+    return dict(device_us=total, traversal_us=part,
+                traversal_share=part / total, kernels_launched=kernels,
+                window_wall_us=wall_us)
+
+
+def mesh_phases(outdir: str, gpu: str) -> list:
+    """Every mesh-path phase; returns the `kernels` entries of K2-K4."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    scene = load_scene(MESH)  # the Python SAH build: once per process
+    w, h = scene.camera.resolution
+    depth = scene.settings.trace_depth
+    log(json.dumps(dict(phase="mesh load", seconds=time.perf_counter() - t0,
+                        triangles=int(scene.meshes.tri_v0.shape[0]),
+                        nodes8=int(scene.packed_meshes[0].nodes.shape[0]))))
+    if (w, h, depth) != (1024, 1024, 8):
+        raise AssertionError(f"mesh.txt is {w}x{h} depth {depth}")
+
+    # ---- 8a. K2, K3, K4 against their plain versions -----------------------
+    probe = Renderer(scene, device="cuda")
+    p8 = probe.packed_meshes[0]
+    pb = PB.PackedMesh(*(t.to(dev) for t in PB.pack_mesh(scene.meshes)))
+    bounce0, bounce1 = mesh_wavefronts(probe)
+    errs = dict(K2=0.0, K3=0.0, K4=0.0)
+    mean_pops = {}
+    for tag, (qo, qd, tb) in (("aimed 65536", aimed_rays(65536, dev)),
+                              ("primary 1024x1024", bounce0),
+                              ("bounce-1 1024x1024", bounce1)):
+        k = P8.traverse8(qo, qd, p8, t_bound=tb, return_pops=True)
+        p = P8.traverse8_plain(qo, qd, p8, t_bound=tb)
+        torch.cuda.synchronize()
+        rec = traversal_check(f"K2 {tag}", k[:5], p[:5], pops=(k[5], p[5]))
+        errs["K2"] = max(errs["K2"], rec["max_abs_err"])
+        mean_pops[tag] = rec["mean_pops"]
+        hit = k[4] >= 0
+        half = P8.traverse8(qo, qd, p8, t_bound=torch.where(hit, 0.5 * k[0],
+                                                            tb))
+        occl = P8.traverse8(qo, qd, p8, t_bound=tb, any_hit=True)
+        torch.cuda.synchronize()
+        pruned = not bool((half[4][hit] >= 0).any())
+        same_mask = torch.equal(occl[4] >= 0, hit)
+        log(json.dumps(dict(check=f"K2 bound and any_hit {tag}",
+                            hits=int(hit.sum()), half_bound_all_miss=pruned,
+                            any_hit_mask_equal=same_mask)))
+        if not (pruned and same_mask):
+            raise AssertionError(f"K2 {tag}: occlusion bound or any_hit")
+        plain_b = PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
+        binary = {}
+        for name, sub in (("K3", False), ("K4", True)):
+            binary[name] = PB.traverse(qo, qd, pb, t_bound=tb,
+                                       sub_packets=sub)
+            torch.cuda.synchronize()
+            rec = traversal_check(f"{name} {tag}", binary[name], plain_b)
+            errs[name] = max(errs[name], rec["max_abs_err"])
+        agree = float((binary["K3"][4] == k[4]).float().mean())
+        log(json.dumps(dict(check=f"K2 tri vs K3 tri {tag}", agree=agree)))
+        if agree < 1 - FRAC:
+            raise AssertionError(f"K2 and K3 disagree on {tag}: {agree}")
+
+    # ---- 8b. the mesh path: Renderer on mesh.txt ---------------------------
+    mk.LAUNCHES = P8.LAUNCHES = PB.LAUNCHES = PB.LAUNCHES_SUB = 0
+    r = Renderer(scene, device="cuda")
+    r.step_many(8)
+    torch.cuda.synchronize()
+    k2_launches = P8.LAUNCHES
+    others = (mk.LAUNCHES, PB.LAUNCHES, PB.LAUNCHES_SUB)
+    if r.route != "wavefront" or k2_launches != 8 * 8 or any(others):
+        raise AssertionError(f"mesh path: route {r.route}, K2 launched "
+                             f"{k2_launches} times (want 64), K1/K3/K4 "
+                             f"{others} (want none)")
+    img = r.accum.cpu().numpy()
+    if img.shape != (1024, 1024, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError("mesh image is not finite and >= 0")
+    png = r.save(os.path.join(outdir, "mesh_1024x1024_8spp"))
+    log(json.dumps(dict(phase="mesh main path", scene="scenes/mesh.txt",
+                        resolution=[w, h], depth=depth,
+                        iterations=r.iteration, launches=k2_launches,
+                        megakernel_launches=others[0],
+                        mean=float(img.mean() / r.iteration), png=png)))
+
+    # The same path on the binary tree (pack_all): K3, two iterations, held
+    # against the 8-wide tree's image on the same draws.
+    PB.LAUNCHES = 0
+    rb = Renderer(dataclasses.replace(
+        scene, packed_meshes=PB.pack_all(scene.meshes)), device="cuda")
+    rb.step_many(2)
+    torch.cuda.synchronize()
+    k3_launches = PB.LAUNCHES
+    if k3_launches != 2 * 8:
+        raise AssertionError(f"binary mesh path launched K3 {k3_launches} "
+                             "times for 2 iterations (want 16)")
+    rw = Renderer(scene, device="cuda")
+    rw.step_many(2)
+    compare_lanes("mesh binary tree vs 8-wide 1024x1024 d8 2spp", rb.accum,
+                  rw.accum, ATOL, FRAC)
+    # K4 has no route of its own (nor in the JAX package): its drive is the
+    # wrapper on the path's two wavefronts.
+    PB.LAUNCHES_SUB = 0
+    for qo, qd, tb in (bounce0, bounce1):
+        PB.traverse(qo, qd, pb, t_bound=tb, sub_packets=True)
+    torch.cuda.synchronize()
+    k4_launches = PB.LAUNCHES_SUB
+
+    # The stratified wavefront route, kernel against plain traversal.
+    small = dataclasses.replace(
+        scene, camera=copy.deepcopy(scene.camera),
+        settings=dataclasses.replace(scene.settings, stratified=True))
+    small.camera.resolution = (256, 256)
+    small.camera.derive()
+    got = Renderer(small, device="cuda").render(1).clone()
+    kernel_traverse8 = P8.traverse8
+    P8.traverse8 = lambda qo, qd, packed, t_bound=None: \
+        P8.traverse8_plain(qo, qd, packed, t_bound)[:5]
+    try:
+        want = Renderer(small, device="cuda").render(1).clone()
+    finally:
+        P8.traverse8 = kernel_traverse8
+    compare_lanes("stratified mesh 256x256 d8: K2 vs plain traversal", got,
+                  want, ATOL, FRAC)
+
+    cli = subprocess.run(
+        [sys.executable, "-m", PKG, MESH, "--iterations", "4",
+         "--device", "cuda", "--metrics", "--outdir", outdir,
+         "--out", "mesh_cli_4spp"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0:
+        raise AssertionError(f"mesh CLI failed ({cli.returncode}):\n"
+                             f"{cli.stderr}")
+    metrics = json.loads(cli.stderr.strip().splitlines()[-1])
+    if not os.path.exists(metrics["output"]):
+        raise AssertionError("mesh CLI wrote no PNG")
+    log(json.dumps(dict(phase="mesh cli", **metrics)))
+
+    # ---- 8c. timing ---------------------------------------------------------
+    runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=1)]
+    log(json.dumps(dict(metric="mesh_ms_per_iteration",
+                        value=float(np.mean(runs)), runs=runs,
+                        config="mesh.txt 1024x1024 depth 8", gpu=gpu,
+                        **device_share(r, "traverse8_kernel"))))
+    times = {}
+    for tag, (qo, qd, tb) in (("bounce-0", bounce0), ("bounce-1", bounce1)):
+        n = int(qo[0].shape[0])
+
+        def k2():
+            P8.traverse8(qo, qd, p8, t_bound=tb)
+
+        def k2_plain():
+            P8.traverse8_plain(qo, qd, p8, t_bound=tb)
+
+        def k3():
+            PB.traverse(qo, qd, pb, t_bound=tb)
+
+        def k4():
+            PB.traverse(qo, qd, pb, t_bound=tb, sub_packets=True)
+
+        def binary_plain():
+            PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
+
+        # plain, kernel, kernel, plain: both see the same card state
+        plain8 = [time_ms(k2_plain, 1, warm=1)]
+        kern = {"K2": [time_ms(k2, 20), time_ms(k2, 20)]}
+        plain8.append(time_ms(k2_plain, 1, warm=0))
+        plainb = [time_ms(binary_plain, 1, warm=1)]
+        kern["K3"] = [time_ms(k3, 20), time_ms(k3, 20)]
+        kern["K4"] = [time_ms(k4, 20), time_ms(k4, 20)]
+        plainb.append(time_ms(binary_plain, 1, warm=0))
+        for name, plain in (("K2", plain8), ("K3", plainb), ("K4", plainb)):
+            times[(name, tag)] = (float(np.mean(kern[name])),
+                                  float(np.mean(plain)))
+            log(json.dumps(dict(
+                metric=f"{name}_traversal_ms", wavefront=tag, rays=n,
+                kernel_ms=times[(name, tag)][0], kernel_runs=kern[name],
+                plain_ms=times[(name, tag)][1], plain_runs=plain,
+                mean_pops_per_ray=(mean_pops["primary 1024x1024"]
+                                   if tag == "bounce-0" else
+                                   mean_pops["bounce-1 1024x1024"]),
+                gpu=gpu)))
+
+    src = f"{PKG}/csrc"
+    jax_ops = "project3_cuda_path_tracer_tpu/ops"
+    entries = []
+    for name, source, replaces, launches in (
+            ("bvh8 traversal (K2)", "bvh8.cu", "bvh8.py:355", k2_launches),
+            ("binary traversal (K3)", "bvh_binary.cu", "pallas_bvh.py:128",
+             k3_launches),
+            ("binary traversal, warp packets (K4)", "bvh_binary.cu",
+             "pallas_bvh.py:343", k4_launches)):
+        kid = name[-3:-1]
+        ms, plain_ms = times[(kid, "bounce-0")]
+        entries.append(dict(name=name, route="cuda",
+                            source=f"{src}/{source}",
+                            replaces=f"{jax_ops}/{replaces}",
+                            launches=launches, max_abs_err=errs[kid],
+                            ms=ms, plain_ms=plain_ms))
+    return entries
 
 
 def main() -> int:
@@ -144,7 +446,7 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
-    for path in (SCENE, GLASS, GOLDEN):
+    for path in (SCENE, GLASS, GOLDEN, MESH):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,9 +459,10 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = cuda_build.build("megakernel")
+    libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary"])
     log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
-                        library=os.path.relpath(lib_path, ROOT))))
+                        libraries={k: os.path.relpath(v, ROOT)
+                                   for k, v in libs.items()})))
 
     # ---- 3. kernel vs plain, injected uniforms ----------------------------
     kernel_vs_plain(sized(SCENE, 64, 8), "uniforms", 0, ATOL, FRAC,
@@ -297,6 +600,9 @@ def main() -> int:
             path_segments_per_s=segs / (ms / 1e3),
             config="cornell 800x800 depth 8", gpu=gpu)))
 
+    # ---- 8. the mesh path ---------------------------------------------------
+    mesh = mesh_phases(args.outdir, gpu)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(gpu, flush=True)
@@ -305,7 +611,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/megakernel.cu",
         "replaces": "project3_cuda_path_tracer_tpu/ops/megakernel.py:149",
         "launches": launches, "max_abs_err": main_cmp["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms}] + mesh}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

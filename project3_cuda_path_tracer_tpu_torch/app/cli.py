@@ -32,15 +32,16 @@ UNPORTED_FLAGS = {
     "--timestamp-name": _SLICE_H, "--debug-nans": _SLICE_H,
     "--no-bake": "no slice: XLA constant baking has no counterpart (the "
                  "scene table is a kernel input)",
-    "--megakernel": "no slice: every iteration already runs the CUDA "
-                    "megakernel on --device cuda",
+    "--megakernel": "no slice: the renderer already takes the CUDA "
+                    "megakernel for every scene it supports",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m project3_cuda_path_tracer_tpu_torch",
-        description="Path tracer, PyTorch + CUDA port (primitive scenes)")
+        description="Path tracer, PyTorch + CUDA port (primitive and mesh "
+                    "scenes)")
     p.add_argument("scene", help="scene file (reference text format)")
     p.add_argument("--iterations", type=int, default=None,
                    help="override the scene's ITERATIONS")

@@ -1,4 +1,4 @@
-"""Progressive path-tracing integrator, primitive slice.
+"""Progressive path-tracing integrator: primitive and mesh scenes.
 
 Counterpart of project3_cuda_path_tracer_tpu/render/integrator.py: one
 iteration (one sample per pixel) traces the whole W*H wavefront through
@@ -6,11 +6,17 @@ iteration (one sample per pixel) traces the whole W*H wavefront through
 adds its radiance into the [H,W,3] accumulator (finalGather, reference
 src/pathtrace.cu:269-278).
 
-`Renderer` runs every iteration through `ops.megakernel.iteration`: on the
-card that is the CUDA megakernel, on the CPU its plain version, which is
-`trace_wavefront` below. Only the plain estimator is ported: no sort or
-compaction, NEE, Russian roulette, adaptive sampling, ReSTIR or
-first-bounce cache (ROADMAP.md Queue 1).
+`Renderer` picks one of two routes from the scene:
+  megakernel  every scene `ops.megakernel.supports` accepts (cubes and
+              spheres, no glossy lobe): one `ops.megakernel.iteration` per
+              iteration, the CUDA megakernel on the card;
+  wavefront   the other scenes the torch stages cover (meshes, the glossy
+              lobe): `trace_wavefront` on the Renderer's device, whose mesh
+              hits go through the BVH traversal kernels (ops/bvh8.py,
+              ops/pallas_bvh.py).
+Only the plain estimator is ported: no sort or compaction, NEE, Russian
+roulette, adaptive sampling, ReSTIR or first-bounce cache (ROADMAP.md
+Queue 1).
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ class TraceConfig:
     motion: bool = True
     # stratified lattice draws keyed on (iteration, depth, pixel)
     stratified: bool = False
+    # per-geom index into Scene.packed_meshes, -1 for primitives
+    mesh_ids: Tuple[int, ...] = ()
 
 
 def build_trace_config(scene: T.Scene, settings=None) -> TraceConfig:
@@ -62,7 +70,8 @@ def build_trace_config(scene: T.Scene, settings=None) -> TraceConfig:
         dof=bool(scene.camera.aperture > 0
                  and scene.camera.focal_distance > 0),
         motion=bool(scene.camera.shutter > 0),
-        stratified=settings.stratified)
+        stratified=settings.stratified,
+        mesh_ids=tuple(int(m) for m in scene.geoms.mesh_id.tolist()))
 
 
 def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
@@ -70,12 +79,14 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
                     generator: Optional[torch.Generator] = None,
                     iteration: Optional[int] = None,
                     cam_u: Optional[torch.Tensor] = None,
-                    u: Optional[torch.Tensor] = None) -> V3:
+                    u: Optional[torch.Tensor] = None,
+                    packed_meshes: tuple = ()) -> V3:
     """One iteration's per-pixel radiance as a planar V3 of [N] tensors.
 
     Draws come from the injected `cam_u` [5,N] and `u` [depth,4,N] when
     given; else from the stratified lattice when `cfg.stratified` and
-    `iteration` is given; else from `torch.rand` on `generator`."""
+    `iteration` is given; else from `torch.rand` on `generator`. Mesh geoms
+    traverse `packed_meshes` (Scene.packed_meshes on the same device)."""
     if cfg.sky:
         raise NotImplementedError("the procedural sky is not ported "
                                   "(ROADMAP.md slice D)")
@@ -92,7 +103,8 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
     rad = V3(zeros, zeros, zeros)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     for depth in range(cfg.trace_depth):
-        hit = wf.intersect_planar(o, d, times, geoms, cfg.geom_types)
+        hit = wf.intersect_planar(o, d, times, geoms, cfg.geom_types,
+                                  packed_meshes, cfg.mesh_ids, alive=alive)
         if u is not None:
             uniforms = u[depth]
         elif strat:
@@ -112,37 +124,84 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
 
 
 def render_radiance(materials, cam, geoms, textures, cfg: TraceConfig,
-                    generator=None, iteration=None) -> torch.Tensor:
+                    generator=None, iteration=None,
+                    packed_meshes: tuple = ()) -> torch.Tensor:
     """One iteration's radiance image [H,W,3]; path i lands at pixel
     (i % W, i // W) (reference: src/pathtrace.cu:128,140)."""
     rad = trace_wavefront(materials, cam, geoms, textures, cfg,
-                          generator=generator, iteration=iteration)
+                          generator=generator, iteration=iteration,
+                          packed_meshes=packed_meshes)
     return torch.stack([c.reshape(cfg.height, cfg.width) for c in rad],
                        dim=-1)
+
+
+def _wavefront_unsupported(scene: T.Scene) -> Optional[str]:
+    """What in `scene` the torch stages of trace_wavefront do not cover yet,
+    with the ROADMAP slice that brings it, or None."""
+    tx, mt = scene.textures, scene.materials
+    if (scene.geoms.type == T.SDF).any():
+        return "SDF geoms (slice E)"
+    if tx.atlas.shape[0] > 1 or tx.atlas.shape[1] > 1:
+        return "a texture atlas (slice D)"
+    if tx.env.shape[0] > 1 or tx.env.shape[1] > 1:
+        return "an environment map (slice D)"
+    if (tx.bump[:, 0] > 0).any() or (tx.nrm_id >= 0).any():
+        return "bump or normal maps (slice D)"
+    if float(tx.sky[0]) > 0:
+        return "the procedural sky (slice D)"
+    if mt.dispersion is not None and (mt.dispersion > 0).any():
+        return "spectral dispersion (slice E)"
+    return None
+
+
+def _to(tables, device: torch.device):
+    """A dataclass or NamedTuple of tensors, moved to `device`."""
+    if dataclasses.is_dataclass(tables):
+        return dataclasses.replace(tables, **{
+            f.name: getattr(tables, f.name).to(device)
+            for f in dataclasses.fields(tables)
+            if isinstance(getattr(tables, f.name), torch.Tensor)})
+    return type(tables)(*(t.to(device).contiguous() for t in tables))
 
 
 class Renderer:
     """Progressive renderer (reference: pathtraceInit/pathtrace,
     src/pathtrace.h:6-8). Owns the [H,W,3] float32 accumulator on `device`
-    and the iteration counter; every `step()` is one launch of
-    `ops.megakernel.iteration`. The scene table is packed once, here: a
-    changed scene needs a new Renderer.
+    and the iteration counter. The scene decides the route (module
+    docstring): `route` is "megakernel" (one `ops.megakernel.iteration`
+    per step) or "wavefront" (`render_radiance` on `device`, its draws
+    from a torch.Generator seeded from the seed and the iteration, or from
+    the stratified lattice). The scene tables are moved or packed once,
+    here: a changed scene needs a new Renderer.
 
     `device` is "cuda" or "cpu" and is never chosen for the caller: "cuda"
-    without a card raises. Scenes outside `ops.megakernel.supports` raise
-    NotImplementedError."""
+    without a card raises. Scenes with features the port's stages lack
+    raise NotImplementedError naming the ROADMAP slice."""
 
     def __init__(self, scene: T.Scene,
                  settings: Optional[T.RenderSettings] = None,
                  device: str = "cuda"):
         self.device = resolve_device(device)
-        mk.require_supported(scene)
         self.scene = scene
         self.settings = settings or scene.settings
         self.cfg = build_trace_config(scene, self.settings)
-        self.table = mk.pack_scene(scene, self.device)
-        self.sampler = "stratified" if self.cfg.stratified else "philox"
         self.seed = self.settings.seed
+        if mk.supports(scene):
+            self.route = "megakernel"
+            self.table = mk.pack_scene(scene, self.device)
+            self.sampler = "stratified" if self.cfg.stratified else "philox"
+        else:
+            why = _wavefront_unsupported(scene)
+            if why is not None:
+                raise NotImplementedError(
+                    f"scene not renderable by the torch port yet: it has "
+                    f"{why}; ROADMAP.md Queue 1 lists the slices")
+            self.route = "wavefront"
+            dev = self.device
+            self.tables = (_to(scene.materials, dev), scene.camera.flat(dev),
+                           _to(scene.geoms, dev), _to(scene.textures, dev))
+            self.packed_meshes = tuple(_to(p, dev)
+                                       for p in scene.packed_meshes)
         self.reset()
 
     def reset(self) -> None:
@@ -154,10 +213,18 @@ class Renderer:
 
     def step(self) -> None:
         """One progressive iteration (one sample per pixel)."""
-        mk.iteration(self.accum, self.table, self.cfg, self.iteration,
-                     self.seed, self.sampler)
+        if self.route == "megakernel":
+            mk.iteration(self.accum, self.table, self.cfg, self.iteration,
+                         self.seed, self.sampler)
+        else:
+            gen = None
+            if not self.cfg.stratified:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(mk.seed32(self.seed, self.iteration))
+            self.accum.add_(render_radiance(
+                *self.tables, self.cfg, generator=gen,
+                iteration=self.iteration, packed_meshes=self.packed_meshes))
         self.iteration += 1
-
     def step_many(self, n: int) -> None:
         for _ in range(n):
             self.step()

@@ -1,17 +1,22 @@
 """Carry scene parameters over from the JAX package as NumPy arrays.
 
 The JAX package's tables are pytrees of jax arrays; `np.asarray` of each
-`Materials`/`Geoms` leaf and of `Camera.flat()` gives plain dicts of NumPy
-arrays, which this module turns into the port's `Scene` without importing
-jax. The tests use it to feed both packages the same parameters.
+`Materials`/`Geoms`/`MeshBundle` leaf, of each packed mesh's fields and of
+`Camera.flat()` gives plain dicts of NumPy arrays, which this module turns
+into the port's `Scene`, `MeshBundle` and packed meshes without importing
+jax. The tests use it to feed both packages the same parameters and the
+same BVH.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops.bvh8 import PackedMesh8
+from ..ops.pallas_bvh import PackedMesh
 from . import types as T
 
 _MATERIAL_KEYS = ("color", "specular_exponent", "specular_color",
@@ -25,15 +30,41 @@ def _tensor(a, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype))
 
 
+def mesh_bundle_from_numpy(bundle: dict) -> T.MeshBundle:
+    """A port `MeshBundle` from a dict of the JAX MeshBundle's fields."""
+    ints = ("node_right", "node_start", "node_count", "node_skip",
+            "mesh_root", "mesh_tri_offset")
+    return T.MeshBundle(**{
+        f.name: _tensor(bundle[f.name],
+                        np.int32 if f.name in ints else np.float32)
+        for f in dataclasses.fields(T.MeshBundle)})
+
+
+def packed_mesh_from_numpy(packed: dict):
+    """A port packed mesh from a dict of a JAX packed mesh's fields: the
+    fused `nodes` table and `tris` of a PackedMesh8 (the 8-wide kernel
+    reads nothing else), or `nodes_f`/`nodes_i`/`tris` of a binary
+    PackedMesh."""
+    if packed.get("nodes") is not None:
+        return PackedMesh8(nodes=_tensor(packed["nodes"], np.float32),
+                           tris=_tensor(packed["tris"], np.float32))
+    return PackedMesh(nodes_f=_tensor(packed["nodes_f"], np.float32),
+                      nodes_i=_tensor(packed["nodes_i"], np.int32),
+                      tris=_tensor(packed["tris"], np.float32))
+
+
 def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
                      settings: Optional[T.RenderSettings] = None, *,
-                     resolution: tuple) -> T.Scene:
+                     resolution: tuple,
+                     meshes: Optional[T.MeshBundle] = None,
+                     packed_meshes: tuple = ()) -> T.Scene:
     """Build a port `Scene` from NumPy tables.
 
     `materials`/`geoms` map the JAX dataclass field names to arrays (a
     missing `dispersion` is zeros); `camera` is the JAX `Camera.flat()` dict
     (position, view, up, right, pixel_length, aperture, focal_distance,
     shutter); `resolution` is (width, height), which `flat()` does not carry.
+    `meshes` and `packed_meshes` are the port's (see the converters above).
     """
     n_mat = np.asarray(materials["color"]).shape[0]
     mats = {k: _tensor(materials[k], np.float32)
@@ -55,4 +86,6 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
         focal_distance=float(c["focal_distance"]),
         shutter=float(c["shutter"]))
     return T.Scene(camera=cam, settings=settings or T.RenderSettings(),
-                   materials=T.Materials(**mats), geoms=T.Geoms(**geom_t))
+                   materials=T.Materials(**mats), geoms=T.Geoms(**geom_t),
+                   meshes=meshes or T.MeshBundle.empty(),
+                   packed_meshes=tuple(packed_meshes))

@@ -1,15 +1,19 @@
-"""Scene-file parser for the reference's text grammar, primitive slice.
+"""Scene-file parser for the reference's text grammar.
 
 Counterpart of project3_cuda_path_tracer_tpu/scene/parser.py (reference:
 src/scene.cpp):
   MATERIAL n  -> RGB/SPECEX/SPECRGB/REFL/REFR/REFRIOR/EMITTANCE, DISPERSION
   CAMERA      -> RES/FOVY/ITERATIONS/DEPTH/FILE, EYE/LOOKAT/UP,
                  APERTURE/FOCAL (thin lens), SHUTTER (motion blur)
-  OBJECT n    -> `cube` | `sphere`, `material k`, TRANS/ROTAT/SCALE, VELOC
+  OBJECT n    -> `cube` | `sphere` | `mesh <path.obj>`, `material k`,
+                 TRANS/ROTAT/SCALE, VELOC
 IDs must be sequential; blocks end at a blank line. The tables are built in
 NumPy first (the same float32 arithmetic as the JAX parser), then wrapped as
-tensors. Keywords of slices not ported yet raise NotImplementedError naming
-the slice (ROADMAP.md, Queue 1).
+tensors. Mesh paths resolve relative to the scene file; each OBJ is loaded
+once (deduplicated by path), its BVH built (scene/bvh.py) and packed in the
+8-wide layout of the traversal kernel (ops/bvh8.pack_all8). Keywords of
+slices not ported yet raise NotImplementedError naming the slice
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.bvh8 import pack_all8
 from ..utils import math as m
 from . import types as T
+from .bvh import build_mesh_bundle
 
 _TEXTURE_SLICE = "slice D (textures and environment)"
 # keyword -> the ROADMAP slice that ports it
@@ -28,7 +34,7 @@ _UNPORTED = {
     "TEXTURE": _TEXTURE_SLICE, "CHECKER": _TEXTURE_SLICE,
     "NORMALMAP": _TEXTURE_SLICE, "BUMP": _TEXTURE_SLICE,
     "ENVMAP": _TEXTURE_SLICE, "ENVSKY": _TEXTURE_SLICE,
-    "mesh": "slice C (meshes)", "sdf": "slice E (SDF primitives)",
+    "sdf": "slice E (SDF primitives)",
 }
 
 
@@ -82,6 +88,7 @@ def load_scene(path: str) -> T.Scene:
     with open(path, "r") as f:
         cur = _Cursor([ln.rstrip("\r\n") for ln in f])
 
+    base = os.path.dirname(os.path.abspath(path))
     mats: List[dict] = []
     geoms: List[dict] = []
     cam: Optional[T.Camera] = None
@@ -128,18 +135,22 @@ def load_scene(path: str) -> T.Scene:
             if gid != len(geoms):
                 raise SceneParseError(
                     f"OBJECT ID {gid} does not match expected {len(geoms)}")
-            g = dict(type=None, material=0, trans=(0, 0, 0),
+            g = dict(type=None, mesh_path=None, material=0, trans=(0, 0, 0),
                      rotat=(0, 0, 0), scale=(1, 1, 1), veloc=(0, 0, 0))
             tline = cur.next()
             while _is_comment(tline):
                 tline = cur.next()
-            tname = tline.split()[0]
+            trow = tline.split()
+            tname = trow[0]
             if tname in _UNPORTED:
                 raise _unported(tname, path)
             if tname == "sphere":
                 g["type"] = T.SPHERE
             elif tname == "cube":
                 g["type"] = T.CUBE
+            elif tname == "mesh":
+                g["type"] = T.MESH
+                g["mesh_path"] = os.path.join(base, trow[1])
             else:
                 raise SceneParseError(f"unknown OBJECT type {tname!r}")
             for row in cur.block():
@@ -214,13 +225,28 @@ def load_scene(path: str) -> T.Scene:
         invt = np.stack([m.inverse_transpose(t) for t in xf])
     else:
         xf = inv = invt = np.zeros((0, 4, 4), np.float32)
+    # meshes referenced by OBJECTs, deduplicated by path
+    mesh_paths: List[str] = []
+    mesh_ids = []
+    for g in geoms:
+        if g["type"] == T.MESH:
+            if g["mesh_path"] not in mesh_paths:
+                mesh_paths.append(g["mesh_path"])
+            mesh_ids.append(mesh_paths.index(g["mesh_path"]))
+        else:
+            mesh_ids.append(-1)
     geom_tables = dict(
         type=np.array([g["type"] for g in geoms], np.int32),
         material_id=np.array([g["material"] for g in geoms], np.int32),
         transform=xf, inverse_transform=inv, inverse_transpose=invt,
         velocity=np.array([g["veloc"] for g in geoms],
                           np.float32).reshape(-1, 3),
-        mesh_id=np.full((len(geoms),), -1, np.int32))
+        mesh_id=np.array(mesh_ids, np.int32))
+
+    meshes, packed = T.MeshBundle.empty(), ()
+    if mesh_paths:
+        meshes = build_mesh_bundle(mesh_paths)
+        packed = pack_all8(meshes)
 
     return T.Scene(
         camera=cam, settings=settings,
@@ -228,4 +254,5 @@ def load_scene(path: str) -> T.Scene:
                                  for k, v in materials.items()}),
         geoms=T.Geoms(**{k: torch.from_numpy(v)
                          for k, v in geom_tables.items()}),
+        meshes=meshes, packed_meshes=packed,
         source_path=os.path.abspath(path))

@@ -3,9 +3,8 @@
 Counterpart of project3_cuda_path_tracer_tpu/scene/types.py. Tables are
 torch tensors with the JAX package's shapes ([M,3], [G,4,4], ...), built on
 the CPU by the parser; a renderer moves what it needs to its own device
-(ops/megakernel.pack_scene). Only the primitive slice is ported: `Textures`
-and `MeshBundle` exist in their empty forms, which is all a primitive scene
-carries.
+(ops/megakernel.pack_scene). `Textures` exists only in its empty form
+(textures arrive with slice D).
 """
 from __future__ import annotations
 
@@ -56,12 +55,45 @@ class Geoms:
 
 @dataclass
 class MeshBundle:
-    """Empty form only: meshes arrive with the mesh slice."""
-    tri_v0: torch.Tensor
+    """Flattened triangle-mesh + BVH arrays shared by all MESH geoms (the
+    JAX MeshBundle, field for field).
+
+    All meshes are concatenated; per-geom `mesh_id` selects a (node, tri)
+    range. Built on the host (scene/bvh.py); the traversal kernels read the
+    per-mesh packed forms (ops/bvh8.pack_all8, ops/pallas_bvh.pack_all).
+    """
+    # triangle soup, object space
+    tri_v0: torch.Tensor     # [T,3]
+    tri_e1: torch.Tensor     # [T,3]  v1 - v0
+    tri_e2: torch.Tensor     # [T,3]  v2 - v0
+    tri_n0: torch.Tensor     # [T,3]  vertex normals (face normal if absent)
+    tri_n1: torch.Tensor     # [T,3]
+    tri_n2: torch.Tensor     # [T,3]
+    tri_uv0: torch.Tensor    # [T,2]
+    tri_uv1: torch.Tensor    # [T,2]
+    tri_uv2: torch.Tensor    # [T,2]
+    # flattened BVH (depth-first skip-pointer layout)
+    node_lo: torch.Tensor     # [B,3]  aabb min
+    node_hi: torch.Tensor     # [B,3]  aabb max
+    node_right: torch.Tensor  # [B] int32: right-child index (internal) or -1
+    node_start: torch.Tensor  # [B] int32: first tri (leaf) else -1
+    node_count: torch.Tensor  # [B] int32: tri count (leaf) else 0
+    node_skip: torch.Tensor   # [B] int32: next node if subtree skipped
+    mesh_root: torch.Tensor   # [K] int32: BVH root node per mesh
+    mesh_tri_offset: torch.Tensor  # [K] int32
 
     @staticmethod
     def empty() -> "MeshBundle":
-        return MeshBundle(tri_v0=torch.zeros((1, 3), dtype=F32))
+        f3 = torch.zeros((1, 3), dtype=F32)
+        f2 = torch.zeros((1, 2), dtype=F32)
+        i1 = torch.zeros((1,), dtype=I32)
+        return MeshBundle(
+            tri_v0=f3, tri_e1=f3, tri_e2=f3,
+            tri_n0=f3, tri_n1=f3, tri_n2=f3,
+            tri_uv0=f2, tri_uv1=f2, tri_uv2=f2,
+            node_lo=f3, node_hi=f3,
+            node_right=i1 - 1, node_start=i1, node_count=i1,
+            node_skip=i1 - 1, mesh_root=i1, mesh_tri_offset=i1)
 
 
 @dataclass
@@ -165,6 +197,10 @@ class Scene:
     meshes: MeshBundle = field(default_factory=MeshBundle.empty)
     textures: Optional[Textures] = None
     source_path: str = ""
+    # One packed traversal table per mesh of `meshes`: ops/bvh8.PackedMesh8
+    # (the parser's default, kernel K2) or ops/pallas_bvh.PackedMesh (the
+    # binary tree, kernels K3/K4). The integrator dispatches on the type.
+    packed_meshes: tuple = ()
 
     def __post_init__(self):
         if self.textures is None:

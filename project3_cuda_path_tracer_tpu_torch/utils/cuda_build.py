@@ -3,18 +3,22 @@
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so a
 build is one nvcc run of a few seconds. The shared library lands in the
 package's git-ignored `_build/` directory under a name keyed by a hash of the
-source and the flags: an edited source builds anew, an unchanged one loads
-the library already there.
+source, the shared `csrc/*.cuh` headers and the flags: an edited source
+builds anew, an unchanged one loads the library already there.
+`build_all` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -38,9 +42,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where `csrc/<name>.cu` builds to (keyed by its source and flags)."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where `csrc/<name>.cu` builds to (keyed by its source, the headers
+    and the flags)."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            key.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
 
 
@@ -65,6 +73,12 @@ def build(name: str) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """`build` every name, one nvcc process each, all started together."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -97,8 +97,12 @@ def test_cuda_device_is_never_substituted():
 
 
 def test_renderer_refuses_unsupported_scene():
-    scene = load_scene(os.path.join(SCENES, "cornell_glossy.txt"))
-    with pytest.raises(NotImplementedError, match="SPECEX"):
+    """A feature no ported stage covers (the procedural sky) raises and
+    names its slice; the glossy lobe, which only the megakernel lacks, now
+    takes the wavefront route (tests/test_torch_mesh.py)."""
+    scene = load_scene(os.path.join(SCENES, "cornell.txt"))
+    scene.textures.sky[0] = 1.0
+    with pytest.raises(NotImplementedError, match="sky.*slice D"):
         Renderer(scene, device="cpu")
 
 

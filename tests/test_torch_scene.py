@@ -89,7 +89,8 @@ def test_scene_from_numpy_matches_parser(name):
 
 
 @pytest.mark.parametrize("name,slice_name", [
-    ("mesh", "slice C"), ("sdf", "slice E"), ("textured_env", "slice D")])
+    ("textured_env_proc", "slice D"), ("sdf", "slice E"),
+    ("textured_env", "slice D")])
 def test_unported_scenes_raise(name, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         load_scene(_path(name))

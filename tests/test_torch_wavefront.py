@@ -178,6 +178,7 @@ def test_shade_matches(name, glossy):
                  mat_id=_from_jax(jh.mat_id).long(),
                  point=V3(*(_from_jax(c) for c in jh.point)),
                  surf=V3(*(_from_jax(c) for c in jh.surf)),
+                 u=_from_jax(jh.u), v=_from_jax(jh.v),
                  outside=_from_jax(jh.outside))
     rng = np.random.default_rng(4)
     thr = rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32)
