@@ -5,13 +5,22 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
-once) and drives two paths, each through `Renderer` and the CLI:
-  - cornell, 800x800, depth 8: the megakernel (K1), held against its plain
-    torch version at the path's shapes;
-  - scenes/mesh.txt, 1024x1024, depth 8, the 81,920-triangle blob: the
-    wavefront route, whose BVH traversals are K2 (8-wide tree) or, with the
-    binary packing, K3 and K4; each is held against its plain version on
-    aimed rays, the primary rays and one diffuse bounce of the blob.
+once) and drives these paths:
+  - cornell, 800x800, depth 8, through `Renderer` and the CLI: the
+    megakernel (K1), held against its plain torch version at the path's
+    shapes;
+  - scenes/mesh.txt, 1024x1024, depth 8, the 81,920-triangle blob, through
+    `Renderer` and the CLI: the wavefront route, whose BVH traversals are
+    K2 (8-wide tree) or, with the binary packing, K3 and K4; each is held
+    against its plain version on aimed rays, the primary rays and one
+    diffuse bounce of the blob;
+  - the train step (models/inverse.py): gradients on the card against the
+    CPU's at 64x64 depth 8; the history step on cornell 800x800 depth 8,
+    timed, with its peak memory; InverseRenderer fitting an albedo back;
+    and the mesh scene through the differentiable recompute (K2 inside);
+  - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
+    tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
+    bit for bit against its plain version first.
 Kernel and plain version are timed in turns. Every phase raises on failure,
 so any failure exits non-zero. Without a card, or without the rest of the
 repository beside it, it exits non-zero before printing any result.
@@ -23,8 +32,10 @@ line, and last `{"ok": true, "device": {...}}`. The PNGs go to --outdir.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -366,7 +377,10 @@ def mesh_phases(outdir: str, gpu: str) -> list:
         raise AssertionError("mesh CLI wrote no PNG")
     log(json.dumps(dict(phase="mesh cli", **metrics)))
 
-    # ---- 8c. timing ---------------------------------------------------------
+    # ---- 8c. the train step on the mesh scene ------------------------------
+    mesh_train(scene)
+
+    # ---- 8d. timing ---------------------------------------------------------
     runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=1)]
     log(json.dumps(dict(metric="mesh_ms_per_iteration",
                         value=float(np.mean(runs)), runs=runs,
@@ -430,6 +444,298 @@ def mesh_phases(outdir: str, gpu: str) -> list:
     return entries
 
 
+def mesh_train(scene) -> None:
+    """The train step on mesh.txt at 32x32, depth 3: InverseRenderer turns
+    the differentiable recompute on, so each bounce runs K2 for the winning
+    triangle and then Moller-Trumbore in torch ops. Counts at 0 before,
+    read after: K2 ran, K1 did not.
+
+    The target is a flat grey, so the residual is non-zero on every pixel.
+    The blob covers ~5% of the view, and a path that leaves it reaches the
+    light on few of 1,024 lanes, so one render's gradient on the mesh's
+    albedo can be 0 (CPU runs at 32x32 found that on one of four
+    iterations): the check sums the gradients of four stratified
+    iterations."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    small = dataclasses.replace(
+        scene, camera=copy.deepcopy(scene.camera),
+        settings=dataclasses.replace(scene.settings, trace_depth=3))
+    small.camera.resolution = (32, 32)
+    small.camera.derive()
+    mk.LAUNCHES = P8.LAUNCHES = 0
+    ir = PInv.InverseRenderer(small, np.full((32, 32, 3), 0.5, np.float32),
+                              device="cuda")
+    losses = [ir.step(), ir.step()]
+    cfg = dataclasses.replace(ir.cfg, stratified=True)
+    leaves = PInv.param_leaves(ir.params)
+    grads = [torch.zeros_like(p) for p in leaves]
+    for it in range(4):
+        loss, _ = PInv.history_residual_grad_loss(
+            ir.params, *ir.tables, None, cfg, ir.target, ir.hist,
+            ir.packed_meshes, iteration=it)
+        for acc, g in zip(grads, torch.autograd.grad(loss, leaves,
+                                                     allow_unused=True)):
+            if g is not None:
+                acc += g
+    torch.cuda.synchronize()
+    k2, k1 = P8.LAUNCHES, mk.LAUNCHES
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    mesh_albedo = float(grads[0][2].abs().max())
+    log(json.dumps(dict(phase="mesh train", resolution=[32, 32], depth=3,
+                        differentiable_mesh=ir.cfg.differentiable_mesh,
+                        losses=losses, k2_launches=k2, k1_launches=k1,
+                        grads_finite=finite,
+                        mesh_albedo_grad_max=mesh_albedo)))
+    # a seed render, two steps and four gradients: 7 renders x 3 bounces
+    if not (ir.cfg.differentiable_mesh and k2 == 7 * 3 and k1 == 0):
+        raise AssertionError(f"mesh train: K2 launched {k2} times (want "
+                             f"21), K1 {k1}")
+    if not (finite and np.isfinite(losses).all() and mesh_albedo > 0):
+        raise AssertionError("mesh train: gradients not finite and non-zero")
+
+
+def train_phases(gpu: str, target: torch.Tensor) -> None:
+    """The train step (models/inverse.py) on the card. `target` is the
+    main path's cornell 800x800 image (per-iteration mean)."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+
+    # ---- 9a. gradients, card against CPU ----------------------------------
+    # 64x64, depth 8, stratified draws: the same trace on both devices. As
+    # in tests/test_torch_inverse.py, lanes that diverge at a decision
+    # threshold (transcendentals differ by ulps between the two devices)
+    # are found from the images, at most FRAC of them, and get no weight;
+    # the rest agree to rtol 1e-3 (the backward of the material gather
+    # sums its lanes in another order on the card).
+    scene = sized(SCENE, 64, 8)
+    scene.settings.stratified = True
+    cfg = PI.build_trace_config(scene)
+    rng = np.random.default_rng(0)
+    tgt = rng.random((64, 64, 3), dtype=np.float32) * 0.5
+    resid = rng.random((64, 64, 3), dtype=np.float32)
+
+    def grads(dev, res):
+        params = PInv.params_from_scene(scene, dev)
+        loss, img = PInv.history_residual_grad_loss(
+            params, PI.to_device(scene.geoms, dev), None,
+            PI.to_device(scene.textures, dev), None, cfg,
+            torch.from_numpy(tgt).to(dev), torch.from_numpy(res).to(dev),
+            iteration=3)
+        leaves = PInv.param_leaves(params)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (img.detach().cpu().numpy(), float(loss.detach()),
+                [torch.zeros_like(p).cpu() if x is None else x.cpu()
+                 for p, x in zip(leaves, g)])
+
+    img_c = grads("cpu", resid)[0]
+    img_g = grads("cuda", resid)[0]
+    diverged = (np.abs(img_c - img_g) > ATOL).any(axis=-1)
+    resid = np.where(diverged[..., None], tgt, resid)
+    _, loss_c, g_c = grads("cpu", resid)
+    _, loss_g, g_g = grads("cuda", resid)
+    errs = [float(((a - b).abs() / (b.abs() + 1e-7)).max())
+            for a, b in zip(g_g, g_c)]
+    rec = dict(check="train grads card vs cpu 64x64 d8", lanes=64 * 64,
+               diverged=int(diverged.sum()), loss_card=loss_g,
+               loss_cpu=loss_c, max_rel_err=max(errs), rtol=1e-3)
+    log(json.dumps(rec))
+    if diverged.mean() > FRAC:
+        raise AssertionError(f"train grads: {diverged.sum()} lanes diverge")
+    for a, b in zip(g_g, g_c):
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-7):
+            raise AssertionError(f"train grads differ: {rec}")
+    if float(g_c[0].abs().max()) <= 0:
+        raise AssertionError("train grads: the albedo gradient is zero")
+
+    # ---- 9b. the history step at full width -------------------------------
+    # cornell 800x800, depth 8, fitting the white albedo from 0.5 back to
+    # the main path's image: a seed render, 2 warm-up steps, 10 timed steps
+    # (CUDA events, no host sync inside), one step under torch.profiler,
+    # then 3 two-render steps.
+    bad = sized(SCENE, 800, 8)
+    bad.materials.color[1] = 0.5
+    mk.LAUNCHES = 0
+    ir = PInv.InverseRenderer(bad, target.cpu().numpy(), device="cuda")
+    w, h = bad.camera.resolution
+    if (w, h, ir.cfg.trace_depth) != (800, 800, 8):
+        raise AssertionError("the train step is not at 800x800 depth 8")
+    warm = [ir.step(), ir.step()]
+    step = ir._step
+    p, st, hist = ir.params, ir.opt_state, ir.hist
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    losses = []
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(10):
+        p, st, hist, loss = step(p, st, hist,
+                                 PInv.step_generator(5, i, "cuda"),
+                                 ir.target)
+        losses.append(loss)
+    stop.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    ms = start.elapsed_time(stop) / 10
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_one(lambda: step(p, st, hist,
+                                    PInv.step_generator(6, 0, "cuda"),
+                                    ir.target))
+    ir.params, ir.opt_state, ir.hist = p, st, hist
+    start.record()
+    polish = [ir.step(polish=True) for _ in range(3)]
+    stop.record()
+    torch.cuda.synchronize()
+    polish_ms = start.elapsed_time(stop) / 3
+    losses = torch.stack(losses).cpu().numpy().tolist()
+    albedo = float(ir.params.materials.color[1, 0].detach())
+    log(json.dumps(dict(
+        metric="train_step_ms", value=ms, host_wall_ms=wall_ms,
+        config="cornell 800x800 depth 8, history step", gpu=gpu,
+        fwdbwd_path_segments_per_s=800 * 800 * 8 / (ms / 1e3),
+        peak_memory_bytes=peak, two_render_step_ms=polish_ms,
+        warmup_losses=warm, losses=losses, polish_losses=polish,
+        white_albedo_after=albedo, k1_launches=mk.LAUNCHES, **prof)))
+    if not np.isfinite(warm + losses + polish).all():
+        raise AssertionError("train step: non-finite loss")
+    if albedo == 0.5 or mk.LAUNCHES:
+        raise AssertionError(f"train step: albedo {albedo}, K1 launched "
+                             f"{mk.LAUNCHES} times (the wavefront runs it)")
+
+    # ---- 9c. InverseRenderer fits the albedo back --------------------------
+    # 128x128, depth 2 (tests/test_torch_train.py fits at 64x64 on the CPU;
+    # a card's step costs about the same at 128x128, which halves the
+    # gradient noise): target the mean of 128 renders at the true albedo,
+    # the other leaves frozen, 100 steps, then 50 two-render steps whose
+    # mean must be within 0.2 of 0.98.
+    ref = PInv.InverseRenderer(sized(SCENE, 128, 2), np.zeros((128, 128, 3)),
+                               device="cuda")
+    with torch.no_grad():
+        tgt = torch.stack([
+            PInv.render_image(ref.params, *ref.tables,
+                              PInv.step_generator(100, k, "cuda"), ref.cfg)
+            for k in range(128)]).mean(0)
+    bad = sized(SCENE, 128, 2)
+    bad.materials.color[1] = 0.5
+    ir = PInv.InverseRenderer(bad, tgt.cpu().numpy(), learning_rate=2e-2,
+                              seed=3, device="cuda")
+    color = ir.params.materials.color
+    for leaf in PInv.param_leaves(ir.params):
+        if leaf is not color:
+            leaf.requires_grad_(False)
+    t0 = time.perf_counter()
+    ir.fit(100)
+    tail = []
+    for _ in range(50):
+        ir.step(polish=True)
+        tail.append(color[1].detach().clone())
+    got = torch.stack(tail).mean(0).cpu().numpy()
+    log(json.dumps(dict(check="fit white albedo 128x128 d2", start=0.5,
+                        true=0.98, recovered=got.tolist(), atol=0.2,
+                        seconds=time.perf_counter() - t0)))
+    if np.abs(got - 0.98).max() > 0.2:
+        raise AssertionError(f"fit recovered {got}, not 0.98 +- 0.2")
+
+
+def profile_one(fn, top: int = 6) -> dict:
+    """One call of `fn` under torch.profiler: device time of its kernels
+    against the wall time of the call (the device-busy share), and the
+    `top` kernels by device time (name, launches, us)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        per_kernel.append((getattr(ev, "self_device_time_total",
+                                   getattr(ev, "self_cuda_time_total", 0.0)),
+                           ev.count, ev.key[:120]))
+    device_us = sum(k[0] for k in per_kernel)
+    if device_us == 0:
+        return dict(profile="not measured: no device events")
+    per_kernel.sort(reverse=True)
+    return dict(profiled_wall_us=wall_us, device_us=device_us,
+                device_busy_share=device_us / wall_us,
+                kernels_launched=sum(k[1] for k in per_kernel),
+                top_kernels=[dict(name=n, launches=c, us=t)
+                             for t, c, n in per_kernel[:top]])
+
+
+def probe_phases(gpu: str) -> list:
+    """P1 and P2: each kernel bit for bit against its plain version, then
+    each probe's entry point (its main()) with the counts at 0 before and
+    read after. Returns their `kernels` entries."""
+    from project3_cuda_path_tracer_tpu_torch.tools import \
+        exp_extract_cost as P2
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    for side in P1.SIDES:
+        table, _, idx = P1.inputs(side)
+        got, want = P1.gather(table, idx), P1.gather_plain(table, idx)
+        torch.cuda.synchronize()
+        equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        log(json.dumps(dict(check=f"P1 gather P={side * side}",
+                            fetches=idx.numel(), bitwise=equal)))
+        if not equal:
+            raise AssertionError(f"P1 kernel differs at P={side * side}")
+    errs = {}
+    for kind in P2.KINDS:
+        table, state = P2.inputs()
+        got = P2.extract_cost(table, state, kind, P2.PLAIN_STEPS)
+        want = P2.extract_cost_plain(table, state, kind, P2.PLAIN_STEPS)
+        torch.cuda.synchronize()
+        errs[kind] = float((got - want).abs().max())
+        equal = torch.equal(got, want)
+        log(json.dumps(dict(check=f"P2 {kind} {P2.PLAIN_STEPS} steps",
+                            bitwise=equal, max_abs_err=errs[kind])))
+        if not equal:
+            raise AssertionError(f"P2 {kind}: kernel differs from plain")
+
+    out = {}
+    for name, mod in (("gather", P1), ("extract_cost", P2)):
+        mod.LAUNCHES = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main()
+        recs = [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+        for rec in recs:
+            log(json.dumps(dict(probe=name, gpu=gpu, **rec)))
+        if rc != 0 or mod.LAUNCHES == 0:
+            raise AssertionError(f"probe {name}: rc {rc}, "
+                                 f"{mod.LAUNCHES} launches")
+        out[name] = (recs, mod.LAUNCHES)
+    recs, p1_launches = out["gather"]
+    by = {(r["prim"], r["P"]): r for r in recs}
+    if not all(by[("cuda_gather_u32", s * s)]["correct"] for s in P1.SIDES):
+        raise AssertionError("P1 probe: gather not correct")
+    big = P1.SIDES[-1] ** 2
+    recs, p2_launches = out["extract_cost"]
+    if not all(r["bitwise"] for r in recs):
+        raise AssertionError("P2 probe: kernel differs from plain")
+    e48 = next(r for r in recs if r["kind"] == "extract48")
+    return [
+        dict(name="texel gather (P1)", route="cuda",
+             source=f"{PKG}/csrc/gather.cu",
+             replaces="tools/exp_gather.py:88", launches=p1_launches,
+             max_abs_err=0.0, ms=by[("cuda_gather_u32", big)]["ms"],
+             plain_ms=by[("plain_index_u32", big)]["ms"]),
+        dict(name="dependent-load chain (P2)", route="cuda",
+             source=f"{PKG}/csrc/extract_cost.cu",
+             replaces="tools/exp_extract_cost.py:61", launches=p2_launches,
+             max_abs_err=max(errs.values()), ms=e48["ms"],
+             plain_ms=e48["plain_ms"])]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--outdir", default=os.path.join(ROOT, "out",
@@ -459,7 +765,8 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary"])
+    libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary",
+                                 "gather", "extract_cost"])
     log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
                         libraries={k: os.path.relpath(v, ROOT)
                                    for k, v in libs.items()})))
@@ -603,6 +910,12 @@ def main() -> int:
     # ---- 8. the mesh path ---------------------------------------------------
     mesh = mesh_phases(args.outdir, gpu)
 
+    # ---- 9. the train step --------------------------------------------------
+    train_phases(gpu, r.accum / r.iteration)
+
+    # ---- 10. the probes P1 and P2 -------------------------------------------
+    probes = probe_phases(gpu)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(gpu, flush=True)
@@ -611,7 +924,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/megakernel.cu",
         "replaces": "project3_cuda_path_tracer_tpu/ops/megakernel.py:149",
         "launches": launches, "max_abs_err": main_cmp["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms}] + mesh}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms}] + mesh + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

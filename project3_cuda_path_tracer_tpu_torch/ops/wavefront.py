@@ -33,6 +33,18 @@ _U32 = 0xFFFFFFFF
 F32 = torch.float32
 
 
+def _max(x: torch.Tensor, c: float) -> torch.Tensor:
+    """max(x, c) with jnp.maximum's gradient: at a tie x == c the gradient
+    is halved (torch.clamp passes all of it). Materials sit on such ties,
+    e.g. REFR 0 against the clip's lower bound."""
+    return torch.maximum(x, torch.tensor(c, dtype=x.dtype))
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip, as jax differentiates it (see `_max`)."""
+    return torch.minimum(_max(x, lo), torch.tensor(hi, dtype=x.dtype))
+
+
 # ---------------------------------------------------------------------------
 # Ray generation (reference: src/pathtrace.cu:122-143)
 # ---------------------------------------------------------------------------
@@ -132,7 +144,7 @@ def generate_rays_planar(cam: dict, width: int, height: int,
         o_dof = V3(o.x + right.x * lr + up.x * lu,
                    o.y + right.y * lr + up.y * lu,
                    o.z + right.z * lr + up.z * lu)
-        f = torch.clamp(focal, min=1e-6)
+        f = _max(focal, 1e-6)
         focus = V3(o.x + d.x * f, o.y + d.y * f, o.z + d.z * f)
         d_dof = vec.normalize(focus - o_dof)
         use_dof = (aperture > 0.0) & (focal > 0.0)
@@ -209,7 +221,7 @@ def _sphere_local_planar(qo: V3, qd: V3):
     v_dot_d = vec.dot(qo, qd)
     radicand = v_dot_d * v_dot_d - (vec.dot(qo, qo) - 0.25)
     has_root = radicand >= 0
-    s = torch.sqrt(torch.where(has_root, torch.clamp(radicand, min=0.0),
+    s = torch.sqrt(torch.where(has_root, _max(radicand, 0.0),
                                torch.ones_like(radicand)))
     t1 = -v_dot_d + s
     t2 = -v_dot_d - s
@@ -307,12 +319,19 @@ def mesh_query(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms, g: int,
 def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      packed, g: int,
                      t_world_bound: Optional[torch.Tensor] = None,
-                     alive: Optional[torch.Tensor] = None) -> HitP:
+                     alive: Optional[torch.Tensor] = None,
+                     meshes: Optional[T.MeshBundle] = None,
+                     differentiable: bool = False,
+                     tri_offset=0) -> HitP:
     """MESH geom g through its packed BVH: kernel K2 for a PackedMesh8, K3
-    for a binary PackedMesh (the JAX `_mesh_hit_packet`, forward only).
+    for a binary PackedMesh (the JAX `_mesh_hit_packet`).
 
     The traversal is a discrete decision and carries no gradient: its rays
-    and outputs are detached. The hit point is rebuilt in object space as
+    and outputs are detached. With `differentiable`, t, the barycentrics,
+    the smooth normal and the uv are recomputed from the winning triangle
+    (row `tri + tri_offset` of the global `meshes` bundle) by
+    Moller-Trumbore in torch ops, so gradients reach the camera through the
+    object-space ray. The hit point is rebuilt in object space as
     qo + (t - 1e-4)*qd with a fused multiply-add (the primitive path's
     rule, ROADMAP F3), taken back to world space with the velocity shift,
     and the normal is flipped two-sided toward the incoming ray."""
@@ -324,6 +343,35 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     else:
         t_obj, nl, u, v, tri = PB.traverse(q_o, q_d, packed, t_bound=t_bound)
     hit = tri >= 0
+
+    if differentiable:
+        tri_g = torch.clamp(tri, min=0).to(torch.int64) + tri_offset
+
+        def take(table):
+            return vec.from_rows(table[tri_g])
+        v0, e1, e2 = (take(meshes.tri_v0), take(meshes.tri_e1),
+                      take(meshes.tri_e2))
+        pvec = vec.cross(qd, e2)
+        det = vec.dot(e1, pvec)
+        # double where: a dead lane's det of 0 must not turn 1/det's
+        # infinite derivative into a NaN gradient
+        ok = det.abs() > 1e-12
+        inv_det = torch.where(ok, 1.0 / torch.where(ok, det,
+                                                    torch.ones_like(det)),
+                              torch.zeros_like(det))
+        tvec = qo - v0
+        bu = vec.dot(tvec, pvec) * inv_det
+        qvec = vec.cross(tvec, e1)
+        bv = vec.dot(qd, qvec) * inv_det
+        t_obj = vec.dot(e2, qvec) * inv_det
+        bw = 1.0 - bu - bv
+        n0, n1, n2 = (take(meshes.tri_n0), take(meshes.tri_n1),
+                      take(meshes.tri_n2))
+        nl = tuple(bw * a + bu * b + bv * c for a, b, c in zip(n0, n1, n2))
+        uv0, uv1, uv2 = (meshes.tri_uv0[tri_g], meshes.tri_uv1[tri_g],
+                         meshes.tri_uv2[tri_g])
+        u = bw * uv0[:, 0] + bu * uv1[:, 0] + bv * uv2[:, 0]
+        v = bw * uv0[:, 1] + bu * uv1[:, 1] + bv * uv2[:, 1]
 
     fwd = geoms.transform[g]
     vel = geoms.velocity[g]
@@ -352,14 +400,17 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
 def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      geom_types: Sequence[int], packed_meshes: tuple = (),
                      mesh_ids: Sequence[int] = (),
-                     alive: Optional[torch.Tensor] = None) -> HitP:
+                     alive: Optional[torch.Tensor] = None,
+                     meshes: Optional[T.MeshBundle] = None,
+                     differentiable_mesh: bool = False) -> HitP:
     """Nearest hit over all geoms (src/pathtrace.cu:176-199): a strict `<`
     merge in geom order, then misses become t = -1, material 0.
 
     Primitives are tested first; their nearest hit becomes the meshes'
     occlusion bound. MESH geom g traverses `packed_meshes[mesh_ids[g]]`,
     and `alive` ([N] bool) marks the lanes that may still hit: dead lanes
-    take no part in the traversal."""
+    take no part in the traversal. `differentiable_mesh` recomputes the
+    mesh hits from the bundle `meshes` (`_mesh_hit_packet`)."""
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g] if g < len(mesh_ids) else -1
@@ -367,6 +418,8 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 raise ValueError(f"mesh geom {g} has no packed mesh "
                                  f"(mesh id {mid}, {len(packed_meshes)} "
                                  "packed)")
+            if differentiable_mesh and meshes is None:
+                raise ValueError("differentiable_mesh needs the MeshBundle")
         elif gtype not in (T.CUBE, T.SPHERE):
             raise NotImplementedError(
                 "only cube, sphere and mesh geoms are ported (SDFs: "
@@ -397,9 +450,13 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                                                      gtype))
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
+            mid = mesh_ids[g]
             best = merge(best, _mesh_hit_packet(
-                o, d, times, geoms, packed_meshes[mesh_ids[g]], g,
-                t_world_bound=best.t, alive=alive))
+                o, d, times, geoms, packed_meshes[mid], g,
+                t_world_bound=best.t, alive=alive, meshes=meshes,
+                differentiable=differentiable_mesh,
+                tri_offset=(meshes.mesh_tri_offset[mid].to(torch.int64)
+                            if differentiable_mesh else 0)))
     miss = best.t >= BIG
     return best._replace(t=torch.where(miss, -1.0, best.t),
                          mat_id=torch.where(miss, 0, best.mat_id))
@@ -469,11 +526,10 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     albedo = _mat_select(materials.color, mat_id)
     spec_color = _mat_select(materials.specular_color, mat_id)
     emittance = _mat_select(materials.emittance, mat_id)
-    p_refr = torch.clamp(_mat_select(materials.has_refractive, mat_id),
-                         0.0, 1.0)
-    p_spec = (torch.clamp(_mat_select(materials.has_reflective, mat_id),
-                          0.0, 1.0) * (1.0 - p_refr))
-    p_diff = torch.clamp(1.0 - p_refr - p_spec, min=0.0)
+    p_refr = _clip(_mat_select(materials.has_refractive, mat_id), 0.0, 1.0)
+    p_spec = (_clip(_mat_select(materials.has_reflective, mat_id), 0.0, 1.0)
+              * (1.0 - p_refr))
+    p_diff = _max(1.0 - p_refr - p_spec, 0.0)
     ior = _mat_select(materials.ior, mat_id)
 
     hit_ok = hit.t > 0.0
@@ -505,7 +561,7 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
         spec_exp = _mat_select(materials.specular_exponent, mat_id)
         cos_a = torch.pow(torch.clamp(uniforms[1], 1e-9, 1.0),
                           1.0 / (spec_exp + 1.0))
-        sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=1e-20))
+        sin_a = torch.sqrt(_max(1.0 - cos_a * cos_a, 1e-20))
         phi_g = uniforms[2] * TWO_PI
         pick_gx = d_spec.x.abs() < SQRT_OF_ONE_THIRD
         pick_gy = (~pick_gx) & (d_spec.y.abs() < SQRT_OF_ONE_THIRD)
@@ -523,19 +579,19 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
         d_spec = vec.where(spec_exp > 0.0, d_gloss, d_spec)
 
     outside = hit.outside
-    safe_ior = torch.clamp(ior, min=1e-6)
+    safe_ior = _max(ior, 1e-6)
     one = torch.ones_like(ior)
     eta = torch.where(outside, 1.0 / safe_ior, safe_ior)
-    cos_i = torch.clamp(-vec.dot(ray_d, n), 0.0, 1.0)
+    cos_i = _clip(-vec.dot(ray_d, n), 0.0, 1.0)
     eta_i = torch.where(outside, one, ior)
     eta_t = torch.where(outside, ior, one)
     q = (eta_i - eta_t) / (eta_i + eta_t)
     r0 = q * q
     fres = r0 + (1.0 - r0) * _pow5(1.0 - cos_i)
 
-    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta * eta * _max(1.0 - cos_i * cos_i, 0.0)
     tir = sin2_t > 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-20))
+    cos_t = torch.sqrt(_max(1.0 - sin2_t, 1e-20))
     k_r = eta * cos_i - cos_t
     d_refr = V3(eta * ray_d.x + k_r * n.x,
                 eta * ray_d.y + k_r * n.y,
@@ -547,9 +603,9 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     new_dir = vec.normalize(vec.where(take_refr, d_refr,
                                       vec.where(take_spec, d_spec, d_diff)))
 
-    inv_pd = 1.0 / torch.clamp(p_diff, min=1e-6)
-    inv_ps = 1.0 / torch.clamp(p_spec, min=1e-6)
-    inv_pr = 1.0 / torch.clamp(p_refr, min=1e-6)
+    inv_pd = 1.0 / _max(p_diff, 1e-6)
+    inv_ps = 1.0 / _max(p_spec, 1e-6)
+    inv_pr = 1.0 / _max(p_refr, 1e-6)
     factor = vec.where(take_refr, spec_color * inv_pr,
                        vec.where(take_spec, spec_color * inv_ps,
                                  albedo * inv_pd))

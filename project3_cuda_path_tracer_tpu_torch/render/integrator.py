@@ -54,6 +54,9 @@ class TraceConfig:
     stratified: bool = False
     # per-geom index into Scene.packed_meshes, -1 for primitives
     mesh_ids: Tuple[int, ...] = ()
+    # recompute mesh hits from the winning triangle in torch ops, so
+    # gradients flow through them (the train step on mesh scenes)
+    differentiable_mesh: bool = False
 
 
 def build_trace_config(scene: T.Scene, settings=None) -> TraceConfig:
@@ -80,13 +83,17 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
                     iteration: Optional[int] = None,
                     cam_u: Optional[torch.Tensor] = None,
                     u: Optional[torch.Tensor] = None,
-                    packed_meshes: tuple = ()) -> V3:
-    """One iteration's per-pixel radiance as a planar V3 of [N] tensors.
+                    packed_meshes: tuple = (),
+                    meshes: Optional[T.MeshBundle] = None) -> V3:
+    """One iteration's per-pixel radiance as a planar V3 of [N] tensors,
+    differentiable in `materials` and `cam` (ops/wavefront detaches the
+    discrete decisions).
 
     Draws come from the injected `cam_u` [5,N] and `u` [depth,4,N] when
     given; else from the stratified lattice when `cfg.stratified` and
     `iteration` is given; else from `torch.rand` on `generator`. Mesh geoms
-    traverse `packed_meshes` (Scene.packed_meshes on the same device)."""
+    traverse `packed_meshes` (Scene.packed_meshes on the same device);
+    `cfg.differentiable_mesh` recomputes their hits from `meshes`."""
     if cfg.sky:
         raise NotImplementedError("the procedural sky is not ported "
                                   "(ROADMAP.md slice D)")
@@ -104,7 +111,9 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     for depth in range(cfg.trace_depth):
         hit = wf.intersect_planar(o, d, times, geoms, cfg.geom_types,
-                                  packed_meshes, cfg.mesh_ids, alive=alive)
+                                  packed_meshes, cfg.mesh_ids, alive=alive,
+                                  meshes=meshes,
+                                  differentiable_mesh=cfg.differentiable_mesh)
         if u is not None:
             uniforms = u[depth]
         elif strat:
@@ -125,12 +134,13 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
 
 def render_radiance(materials, cam, geoms, textures, cfg: TraceConfig,
                     generator=None, iteration=None,
-                    packed_meshes: tuple = ()) -> torch.Tensor:
+                    packed_meshes: tuple = (),
+                    meshes: Optional[T.MeshBundle] = None) -> torch.Tensor:
     """One iteration's radiance image [H,W,3]; path i lands at pixel
     (i % W, i // W) (reference: src/pathtrace.cu:128,140)."""
     rad = trace_wavefront(materials, cam, geoms, textures, cfg,
                           generator=generator, iteration=iteration,
-                          packed_meshes=packed_meshes)
+                          packed_meshes=packed_meshes, meshes=meshes)
     return torch.stack([c.reshape(cfg.height, cfg.width) for c in rad],
                        dim=-1)
 
@@ -154,7 +164,17 @@ def _wavefront_unsupported(scene: T.Scene) -> Optional[str]:
     return None
 
 
-def _to(tables, device: torch.device):
+def require_wavefront(scene: T.Scene) -> None:
+    """Raise NotImplementedError, naming the ROADMAP slice, when `scene`
+    has a feature the torch stages of trace_wavefront do not cover yet."""
+    why = _wavefront_unsupported(scene)
+    if why is not None:
+        raise NotImplementedError(
+            f"scene not renderable by the torch port yet: it has {why}; "
+            "ROADMAP.md Queue 1 lists the slices")
+
+
+def to_device(tables, device: torch.device):
     """A dataclass or NamedTuple of tensors, moved to `device`."""
     if dataclasses.is_dataclass(tables):
         return dataclasses.replace(tables, **{
@@ -191,16 +211,14 @@ class Renderer:
             self.table = mk.pack_scene(scene, self.device)
             self.sampler = "stratified" if self.cfg.stratified else "philox"
         else:
-            why = _wavefront_unsupported(scene)
-            if why is not None:
-                raise NotImplementedError(
-                    f"scene not renderable by the torch port yet: it has "
-                    f"{why}; ROADMAP.md Queue 1 lists the slices")
+            require_wavefront(scene)
             self.route = "wavefront"
             dev = self.device
-            self.tables = (_to(scene.materials, dev), scene.camera.flat(dev),
-                           _to(scene.geoms, dev), _to(scene.textures, dev))
-            self.packed_meshes = tuple(_to(p, dev)
+            self.tables = (to_device(scene.materials, dev),
+                           scene.camera.flat(dev),
+                           to_device(scene.geoms, dev),
+                           to_device(scene.textures, dev))
+            self.packed_meshes = tuple(to_device(p, dev)
                                        for p in scene.packed_meshes)
         self.reset()
 

@@ -4,8 +4,9 @@ The JAX package's tables are pytrees of jax arrays; `np.asarray` of each
 `Materials`/`Geoms`/`MeshBundle` leaf, of each packed mesh's fields and of
 `Camera.flat()` gives plain dicts of NumPy arrays, which this module turns
 into the port's `Scene`, `MeshBundle` and packed meshes without importing
-jax. The tests use it to feed both packages the same parameters and the
-same BVH.
+jax; the train step's parameters and optax's Adam state come across the
+same way. The tests use it to feed both packages the same parameters, the
+same BVH and the same optimizer state.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.inverse import RenderParams, param_leaves
+from ..models.optim import AdamState
 from ..ops.bvh8 import PackedMesh8
 from ..ops.pallas_bvh import PackedMesh
 from . import types as T
@@ -89,3 +92,37 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
                    materials=T.Materials(**mats), geoms=T.Geoms(**geom_t),
                    meshes=meshes or T.MeshBundle.empty(),
                    packed_meshes=tuple(packed_meshes))
+
+
+def _param_tensors(params, device) -> RenderParams:
+    """RenderParams of float32 tensors from an object with the JAX
+    RenderParams' layout: `.materials` with the Materials fields, `.cam`
+    the Camera.flat() dict."""
+    mats = {k: getattr(params.materials, k, None) for k in _MATERIAL_KEYS}
+    return RenderParams(
+        materials=T.Materials(**{
+            k: None if v is None else _tensor(v, np.float32).to(device)
+            for k, v in mats.items()}),
+        cam={k: _tensor(v, np.float32).to(device)
+             for k, v in params.cam.items()})
+
+
+def render_params_from_numpy(params, device="cpu") -> RenderParams:
+    """The port's RenderParams (leaves that require grad) from the JAX
+    RenderParams as NumPy, i.e. `jax.tree_util.tree_map(np.asarray,
+    params)`."""
+    out = _param_tensors(params, device)
+    for t in param_leaves(out):
+        t.requires_grad_(True)
+    return out
+
+
+def adam_state_from_numpy(state, device="cpu") -> AdamState:
+    """The port's Adam state from optax's ScaleByAdamState as NumPy:
+    `count`, and `mu`/`nu` laid out as the JAX RenderParams, whose leaves
+    come out in `param_leaves` order."""
+    return AdamState(
+        count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                           device=device),
+        mu=param_leaves(_param_tensors(state.mu, device)),
+        nu=param_leaves(_param_tensors(state.nu, device)))

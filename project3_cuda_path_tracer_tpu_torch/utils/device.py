@@ -1,4 +1,5 @@
-"""Device resolution: the caller names the device, nothing is picked for it."""
+"""Device resolution (the caller names the device, nothing is picked for
+it), and timing on the card."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +22,31 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on `device` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# ~5 ms of a 2 GHz clock: longer than the host takes to enqueue 20 calls
+# of a ctypes-bound wrapper
+HOLD_CYCLES = 10_000_000
+
+
+def time_ms(fn, iters: int, warm: int = 1) -> float:
+    """Mean device ms per call of `fn` over `iters` calls after `warm`
+    untimed ones, by CUDA events on the current stream (needs a card).
+
+    The stream is held busy (`torch.cuda._sleep`) while the host enqueues
+    the timed calls, so a call whose kernel is shorter than its host side
+    (a ctypes launch takes tens of us) is timed by its kernels, not by its
+    launch. A loop of eager ops that outlasts the hold is still timed at
+    the host's pace."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters

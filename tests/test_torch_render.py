@@ -107,15 +107,23 @@ def test_renderer_refuses_unsupported_scene():
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, models/ and tools/ included, imports
+    without jax, the JAX package or optax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import project3_cuda_path_tracer_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    if not m.name.endswith('__main__'):\n"
-        "        importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,\n"
+        "                                               p.__name__ + '.')\n"
+        "         if not m.name.endswith('__main__')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for want in ('models.inverse', 'models.optim', 'tools.exp_gather',\n"
+        "             'tools.exp_extract_cost'):\n"
+        "    assert p.__name__ + '.' + want in names, want\n"
         "bad = [m for m in sys.modules\n"
-        "       if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
-        "                                      'project3_cuda_path_tracer_tpu.'))]\n"
+        "       if m in ('jax', 'optax') or m.startswith(\n"
+        "           ('jax.', 'jaxlib', 'optax.',\n"
+        "            'project3_cuda_path_tracer_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
