@@ -8,7 +8,10 @@ It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once) and drives these paths:
   - cornell, 800x800, depth 8, through `Renderer` and the CLI: the
     megakernel (K1), held against its plain torch version at the path's
-    shapes;
+    shapes; its two schedules (persistent warps refilling dead lanes, the
+    renderer's; one thread per pixel, `grid`) held equal bit for bit and
+    timed in turns, with each schedule's busy lane share, each instance's
+    registers and spills, and its shared-memory loads in the SASS;
   - scenes/mesh.txt, 1024x1024, depth 8, the 81,920-triangle blob, through
     `Renderer` and the CLI: the wavefront route, whose BVH traversals are
     K2 (8-wide tree) or, with the binary packing, K3 and K4; each is held
@@ -27,7 +30,9 @@ repository beside it, it exits non-zero before printing any result.
 
 Output, on stdout: progress lines, one JSON line per timing, the card's
 name and power limit as nvidia-smi reports them, a `{"kernels": [...]}`
-line, and last `{"ok": true, "device": {...}}`. The PNGs go to --outdir.
+line (each kernel's time beside its bound: bytes over the HBM rate or FP32
+operations over the FP32 rate, from this run's inputs), and last
+`{"ok": true, "device": {...}}`. The PNGs go to --outdir.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import dataclasses
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +69,99 @@ MESH_GEOM = 3  # the blob's geom index in scenes/mesh.txt
 ATOL, FRAC, MEAN_TOL = 1e-4, 0.01, 0.05
 # The glass sphere adds the transmitted path, with more thresholds.
 GLASS_ATOL, GLASS_FRAC = 2e-4, 0.02
+
+# An H100 SXM's published peaks at its 700 W limit (NVIDIA's data sheet,
+# dense rates): HBM bytes/s, and FP32 FLOP/s outside the tensor cores.
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+# K1's FP32 operations, counted by hand from csrc/megakernel.cu (add, mul,
+# min, max, compare, select, abs, division, sqrt, rsqrt, sin, cos: 1 each;
+# FMA: 2): one cube or sphere test up to its world distance; the velocity
+# shift of one test; the shading of a segment that goes on (the winner's
+# normal, the draws' conversion, the diffuse lobe, the throughput); one
+# camera ray. Philox and the lattice hash are integer work, not counted.
+K1_OPS_CUBE, K1_OPS_SPHERE, K1_OPS_MOTION = 130, 107, 12
+K1_OPS_SHADE, K1_OPS_CAMERA = 158, 35
+# The traversals (csrc/bvh_common.cuh): a slab test (box_hit) is 32 FP32
+# operations, a Moller-Trumbore test (leaf) 54; K2 tests 8 child slabs per
+# interior node it pops. The bytes a kernel reads of each row: an 8-wide
+# node its 48 box floats, 8 encodings, axis and threshold; a binary node
+# its 6 box floats and 2 ints; a tested triangle v0, e1, e2; a triangle a
+# ray hits also its 3 normals and 3 uvs.
+BOX_OPS, TRI_OPS = 32, 54
+NODE8_BYTES, NODE2_BYTES = 58 * 4, 8 * 4
+TRI_TEST_BYTES, TRI_HIT_BYTES = 9 * 4, 15 * 4
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the FP32 operations over the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def k1_bound(cfg, table: torch.Tensor, segments: int) -> dict:
+    """K1's bound for one iteration at `cfg` whose paths traced `segments`
+    live segments: every segment tests every geom; at least segments - N
+    of them shade and go on; each of the N pixels casts one camera ray and
+    reads and writes its 12 accumulator bytes; the table is read once."""
+    from project3_cuda_path_tracer_tpu_torch.scene import types as T
+    n = cfg.width * cfg.height
+    per_seg = sum(K1_OPS_CUBE if t == T.CUBE else K1_OPS_SPHERE
+                  for t in cfg.geom_types)
+    if cfg.motion:
+        per_seg += K1_OPS_MOTION * len(cfg.geom_types)
+    flops = (segments * per_seg + max(segments - n, 0) * K1_OPS_SHADE
+             + n * K1_OPS_CAMERA)
+    return bound(24 * n + 4 * table.numel(), flops)
+
+
+class RowLog:
+    """A node table handed to a plain traversal in place of the tensor: it
+    marks the rows the traversal reads and counts the reads."""
+
+    def __init__(self, table: torch.Tensor):
+        self.table, self.shape = table, table.shape
+        self.read = torch.zeros(table.shape[0], dtype=torch.bool,
+                                device=table.device)
+        self.reads = 0
+
+    def __getitem__(self, rows: torch.Tensor) -> torch.Tensor:
+        self.read[rows] = True
+        self.reads += int(rows.numel())
+        return self.table[rows]
+
+
+def tree_reads(plain, packed, node_table: str) -> dict:
+    """What one run of `plain(packed)`, a plain traversal, reads of the
+    tree: the distinct node rows and the node visits (its table
+    `node_table` under a RowLog), the distinct triangle rows and the
+    triangle tests (each leaf's rows start..start+count-1, as the kernels
+    read them; the plain version also reads past `count`)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    log_nodes = RowLog(getattr(packed, node_table))
+    tri_read = torch.zeros(packed.tris.shape[0], dtype=torch.bool,
+                           device=packed.tris.device)
+    tests = 0
+    leaf_phase = PB.leaf_phase
+
+    def marking(rows, start, count, *args, **kwargs):
+        nonlocal tests
+        k = torch.arange(int(count.max()), device=start.device)
+        tri_read[(start[:, None] + k)[k < count[:, None]]] = True
+        tests += int(count.sum())
+        return leaf_phase(rows, start, count, *args, **kwargs)
+
+    PB.leaf_phase = marking
+    try:
+        out = plain(packed._replace(**{node_table: log_nodes}))
+    finally:
+        PB.leaf_phase = leaf_phase
+    return dict(node_rows=int(log_nodes.read.sum()),
+                node_visits=log_nodes.reads,
+                tri_rows=int(tri_read.sum()), tri_tests=tests,
+                hit_tris=int(torch.unique(out[4][out[4] >= 0]).numel()))
 
 
 def log(msg: str) -> None:
@@ -242,6 +342,192 @@ def device_share(r, name: str) -> dict:
     return dict(device_us=total, traversal_us=part,
                 traversal_share=part / total, kernels_launched=kernels,
                 window_wall_us=wall_us)
+
+
+def schedules_equal() -> None:
+    """K1's persistent schedule (the renderer's) against its grid schedule
+    on the same inputs: the accumulators must be equal bit for bit."""
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.render.integrator import \
+        build_trace_config
+    dev = torch.device("cuda")
+    for path, res, depth, sampler in ((SCENE, 800, 8, "philox"),
+                                      (SCENE, 800, 8, "stratified"),
+                                      (GLASS, 64, 4, "uniforms")):
+        scene = sized(path, res, depth)
+        cfg = build_trace_config(scene)
+        table = mk.pack_scene(scene, dev)
+        n = res * res
+        cam_u = u = None
+        if sampler == "uniforms":
+            rng = np.random.default_rng(5)
+            cam_u = torch.from_numpy(rng.random((mk.CAM_DIMS, n),
+                                                dtype=np.float32)).to(dev)
+            u = torch.from_numpy(rng.random((depth, 4, n),
+                                            dtype=np.float32)).to(dev)
+        args = (table, cfg, 3, 11, sampler, cam_u, u)
+        pers = mk.iteration(torch.zeros((res, res, 3), device=dev), *args)
+        grid = mk._iteration_grid(torch.zeros((res, res, 3), device=dev),
+                                  *args)
+        torch.cuda.synchronize()
+        equal = torch.equal(pers, grid)
+        tag = f"K1 persistent vs grid {os.path.basename(path)} {res}x{res} " \
+              f"d{depth} {sampler}"
+        log(json.dumps(dict(check=tag, bitwise=equal,
+                            max_abs_diff=float((pers - grid).abs().max()),
+                            mean=float(pers.mean()))))
+        if not equal or not bool(torch.isfinite(pers).all()):
+            raise AssertionError(f"{tag}: accumulators differ")
+
+
+# A K1 instance's mangled name: megakernel<SCHED, SAMPLER, MOTION>.
+K1_MANGLED = re.compile(r"megakernelILi(\d)ELi(\d)ELb(\d)E")
+
+
+def k1_instance(m: re.Match) -> tuple:
+    """(schedule, sampler, motion) of a K1_MANGLED match."""
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    schedule = {v: k for k, v in mk.SCHEDULES.items()}[int(m.group(1))]
+    sampler = {v: k for k, v in mk.SAMPLERS.items()}[int(m.group(2))]
+    return schedule, sampler, m.group(3) == "1"
+
+
+def ptxas_report(log_path: str) -> dict:
+    """(schedule, sampler, motion) -> registers, spill bytes and stack frame
+    of each K1 instance, from nvcc's -Xptxas -v report of the build."""
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    out, key = {}, None
+    for line in lines:
+        m = K1_MANGLED.search(line)
+        if m and "Compiling entry" in line:
+            key = k1_instance(m)
+            out[key] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and key:
+            out[key].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key]["ptxas_registers"] = int(m.group(1))
+    return out
+
+
+def sass_loads(lib_path: str) -> dict:
+    """(schedule, sampler, motion) -> count of each shared-memory load
+    opcode (LDS, LDS.64, LDS.128) in the instance's SASS, by cuobjdump;
+    empty when the toolkit has no cuobjdump."""
+    from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for line in sass.splitlines():
+        m = K1_MANGLED.search(line)
+        if m and "Function :" in line:
+            key = k1_instance(m)
+            out[key] = {}
+            continue
+        m = re.search(r"\b(LDS(?:\.[A-Z0-9]+)*) ", line)
+        if m and key:
+            out[key][m.group(1)] = out[key].get(m.group(1), 0) + 1
+    return out
+
+
+def k1_timing(gpu: str, table: torch.Tensor, cfg) -> dict:
+    """Phase 7 on cornell 800x800 d8, Philox: each schedule's busy lane
+    share (one counted launch each), then plain, persistent, grid, grid,
+    persistent, plain, each schedule's turn timed twice: by its kernels
+    (the stream held while the host enqueues) and with its host side (no
+    hold, as `Renderer.step` is timed too); every instance's registers,
+    spills and shared loads; K1's bound. Returns the numbers the `kernels`
+    line takes."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    dev = torch.device("cuda")
+    renderer = Renderer(load_scene(SCENE), device="cuda")
+    acc = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+
+    def launch(schedule, stats=None):
+        return lambda: mk._launch(schedule, acc, table, cfg, 0, 0, "philox",
+                                  stats=stats)
+
+    lanes = {}
+    for sched in mk.SCHEDULES:
+        st = torch.zeros((2,), dtype=torch.int64, device=dev)
+        launch(sched, stats=st)()
+        torch.cuda.synchronize()
+        lanes[sched] = [int(v) for v in st.cpu()]
+    if lanes["persistent"][0] != lanes["grid"][0]:
+        raise AssertionError(f"the schedules traced different segment "
+                             f"counts: {lanes}")
+    segments = lanes["persistent"][0]
+
+    def plain_step():
+        mk.iteration_plain(acc, table, cfg, 0, 0, "philox")
+
+    plain_ms = [time_ms(plain_step, 20)]
+    runs = {"persistent": [], "grid": []}
+    unheld = {"persistent": [], "grid": []}
+    for sched in ("persistent", "grid", "grid", "persistent"):
+        runs[sched].append(device_ms(launch(sched), 100, warm=3))
+        unheld[sched].append(time_ms(launch(sched), 100))
+    plain_ms.append(time_ms(plain_step, 20))
+    step_ms = [time_ms(renderer.step, 100), time_ms(renderer.step, 100)]
+    lib = cuda_build.library_path("megakernel")
+    spills = ptxas_report(lib + ".log")
+    loads = sass_loads(lib)
+    instances = []
+    for rec in mk.kernel_attributes(dev, 4 * table.numel()):
+        key = (rec["schedule"], rec["sampler"], rec["motion"])
+        instances.append(dict(rec, **spills.get(key, {}),
+                              shared_loads=loads.get(key, "not measured")))
+    log(json.dumps(dict(k1_instances=instances)))
+    if any(r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1)
+           for r in instances):
+        raise AssertionError("a K1 instance spills (or ptxas gave no report)")
+    k1 = k1_bound(cfg, table, segments)
+    n_whd = cfg.width * cfg.height * cfg.trace_depth
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ms_unheld = {k: float(np.mean(v)) for k, v in unheld.items()}
+    p_ms = float(np.mean(plain_ms))
+    philox = {r["schedule"]: r for r in instances
+              if r["sampler"] == "philox" and not r["motion"]}
+    for sched in ("persistent", "grid"):
+        log(json.dumps(dict(
+            metric=("kernel" if sched == "persistent" else "grid")
+            + "_ms_per_iteration", schedule=sched, value=ms[sched],
+            runs=runs[sched], unheld_ms=ms_unheld[sched],
+            unheld_runs=unheld[sched],
+            path_segments_per_s=n_whd / (ms[sched] / 1e3),
+            live_segments=segments,
+            live_segments_per_s=segments / (ms[sched] / 1e3),
+            busy_lane_slots=lanes[sched][0], lane_slots=lanes[sched][1],
+            busy_lane_share=lanes[sched][0] / lanes[sched][1],
+            registers=philox[sched]["registers"],
+            spill_store_bytes=philox[sched]["spill_store_bytes"],
+            share_of_bound=k1["bound_ms"] / ms[sched],
+            config="cornell 800x800 depth 8, philox", gpu=gpu)))
+    log(json.dumps(dict(metric="plain_ms_per_iteration", value=p_ms,
+                        runs=plain_ms,
+                        path_segments_per_s=n_whd / (p_ms / 1e3),
+                        config="cornell 800x800 depth 8, philox", gpu=gpu)))
+    log(json.dumps(dict(metric="renderer_step_ms", value=float(
+        np.mean(step_ms)), runs=step_ms, sampler=renderer.sampler,
+        config="cornell 800x800 depth 8, Renderer.step, no hold", gpu=gpu)))
+    log(json.dumps(dict(metric="k1_bound", **k1, live_segments=segments,
+                        gpu=gpu)))
+    return dict(ms=ms["persistent"], grid_ms=ms["grid"],
+                unheld_ms=ms_unheld["persistent"], plain_ms=p_ms,
+                bound_ms=k1["bound_ms"], bound_by=k1["bound_by"])
 
 
 def mesh_phases(outdir: str, gpu: str) -> list:
@@ -425,6 +711,34 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                                    mean_pops["bounce-1 1024x1024"]),
                 gpu=gpu)))
 
+    # Bounds on the bounce-0 wavefront (the entries' `ms`): each ray's 7
+    # input floats (origin, direction, t_bound) and 7 output words (t,
+    # normal, uv, tri), and what this wavefront reads of the tree, once
+    # (the rows the plain traversals read); the slab and triangle tests it
+    # makes. K4's warps enter every node one of their rays enters, so it
+    # reads at least what K3 reads.
+    qo, qd, tb = bounce0
+    n0 = int(qo[0].shape[0])
+    ray_bytes = n0 * (7 + 7) * 4
+    reads = {
+        "K2": tree_reads(lambda p: P8.traverse8_plain(qo, qd, p, tb), p8,
+                         "nodes"),
+        "K3": tree_reads(lambda p: PB.traverse_binary_plain(qo, qd, p, tb),
+                         pb, "nodes_f")}
+    bounds = {}
+    for kid, node_bytes, box_tests in (("K2", NODE8_BYTES, 8),
+                                       ("K3", NODE2_BYTES, 1)):
+        rd = reads[kid]
+        bounds[kid] = dict(bound(
+            ray_bytes + rd["node_rows"] * node_bytes
+            + rd["tri_rows"] * TRI_TEST_BYTES
+            + rd["hit_tris"] * TRI_HIT_BYTES,
+            rd["node_visits"] * box_tests * BOX_OPS
+            + rd["tri_tests"] * TRI_OPS), **rd)
+    bounds["K4"] = bounds["K3"]
+    for kid, b in bounds.items():
+        log(json.dumps(dict(metric=f"{kid}_bound", wavefront="bounce-0",
+                            rays=n0, **b, gpu=gpu)))
     src = f"{PKG}/csrc"
     jax_ops = "project3_cuda_path_tracer_tpu/ops"
     entries = []
@@ -440,7 +754,10 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                             source=f"{src}/{source}",
                             replaces=f"{jax_ops}/{replaces}",
                             launches=launches, max_abs_err=errs[kid],
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms,
+                            bound_ms=bounds[kid]["bound_ms"],
+                            bound_by=bounds[kid]["bound_by"],
+                            library_ms=None))
     return entries
 
 
@@ -723,17 +1040,30 @@ def probe_phases(gpu: str) -> list:
     if not all(r["bitwise"] for r in recs):
         raise AssertionError("P2 probe: kernel differs from plain")
     e48 = next(r for r in recs if r["kind"] == "extract48")
+    # P1: each index read and each fetched word written once, the table
+    # once. P2 (extract48 at PLAIN_STEPS, the entry's `ms`): per step the
+    # whole [16,128] state folds 48 scalars (an FMA each) and 128 lanes are
+    # summed; it reads the rows it visits and the state, writes the state.
+    b1 = bound(P1.N * 8 + big * 4, 0)
+    steps = P2.PLAIN_STEPS
+    b2 = bound(steps * P2.ROW * 4 + 2 * P2.SUB * P2.LANES * 4,
+               steps * (P2.SUB * P2.LANES * 48 * 2 + P2.LANES - 1))
+    for name, b in (("P1", b1), ("P2", b2)):
+        log(json.dumps(dict(metric=f"{name}_bound", **b, gpu=gpu)))
     return [
         dict(name="texel gather (P1)", route="cuda",
              source=f"{PKG}/csrc/gather.cu",
              replaces="tools/exp_gather.py:88", launches=p1_launches,
              max_abs_err=0.0, ms=by[("cuda_gather_u32", big)]["ms"],
-             plain_ms=by[("plain_index_u32", big)]["ms"]),
+             plain_ms=by[("plain_index_u32", big)]["ms"],
+             bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
+             library_ms=by[("torch_take_u32", big)]["ms"]),
         dict(name="dependent-load chain (P2)", route="cuda",
              source=f"{PKG}/csrc/extract_cost.cu",
              replaces="tools/exp_extract_cost.py:61", launches=p2_launches,
              max_abs_err=max(errs.values()), ms=e48["ms"],
-             plain_ms=e48["plain_ms"])]
+             plain_ms=e48["plain_ms"], bound_ms=b2["bound_ms"],
+             bound_by=b2["bound_by"], library_ms=None)]
 
 
 def main() -> int:
@@ -822,18 +1152,22 @@ def main() -> int:
     if rel.max() > 0.015 or rel_all > 0.015:
         raise AssertionError(f"philox means differ: {rel} / {rel_all}")
 
+    # ---- 5b. K1's two schedules, bit for bit ------------------------------
+    schedules_equal()
+
     # ---- 6. the main path -------------------------------------------------
-    mk.LAUNCHES = 0
+    mk.LAUNCHES = mk.LAUNCHES_GRID = 0
     r = Renderer(load_scene(SCENE), device="cuda")
     w, h = r.scene.camera.resolution
     r.step_many(16)
     torch.cuda.synchronize()
-    launches = mk.LAUNCHES
+    launches, grid_launches = mk.LAUNCHES, mk.LAUNCHES_GRID
     if (w, h, r.cfg.trace_depth) != (800, 800, 8):
         raise AssertionError(f"cornell is {w}x{h} depth {r.cfg.trace_depth}")
-    if launches != 16:
+    if launches != 16 or grid_launches:
         raise AssertionError(f"main path launched the kernel {launches} "
-                             "times for 16 iterations")
+                             f"times for 16 iterations, {grid_launches} of "
+                             "them in the grid schedule")
     img = r.accum.cpu().numpy()
     if img.shape != (800, 800, 3) or not np.isfinite(img).all() \
             or (img < 0).any():
@@ -842,6 +1176,7 @@ def main() -> int:
     log(json.dumps(dict(phase="main path", scene="scenes/cornell.txt",
                         resolution=[w, h], depth=r.cfg.trace_depth,
                         iterations=r.iteration, launches=launches,
+                        grid_launches=grid_launches,
                         mean=float(img.mean() / r.iteration), png=png)))
 
     # Against the JAX package's pinned golden accumulator (64x64, 8 spp,
@@ -885,27 +1220,8 @@ def main() -> int:
         raise AssertionError("CLI wrote no PNG")
     log(json.dumps(dict(phase="cli", **metrics)))
 
-    # ---- 7. timing at 800x800, depth 8 ------------------------------------
-    acc = torch.zeros((800, 800, 3), device=dev)
-
-    def kernel_step():
-        mk.iteration(acc, table, cfg, 0, 0, "philox")
-
-    def plain_step():
-        mk.iteration_plain(acc, table, cfg, 0, 0, "philox")
-
-    # plain, kernel, kernel, plain: both versions see the same card state
-    plain_ms = [time_ms(plain_step, 20)]
-    kernel_ms = [time_ms(kernel_step, 100), time_ms(kernel_step, 100)]
-    plain_ms.append(time_ms(plain_step, 20))
-    k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    segs = 800 * 800 * 8
-    for name, ms, runs in (("kernel", k_ms, kernel_ms),
-                           ("plain", p_ms, plain_ms)):
-        log(json.dumps(dict(
-            metric=f"{name}_ms_per_iteration", value=ms, runs=runs,
-            path_segments_per_s=segs / (ms / 1e3),
-            config="cornell 800x800 depth 8", gpu=gpu)))
+    # ---- 7. timing at 800x800, depth 8: the A/B of K1's schedules ---------
+    k1 = k1_timing(gpu, table, cfg)
 
     # ---- 8. the mesh path ---------------------------------------------------
     mesh = mesh_phases(args.outdir, gpu)
@@ -924,7 +1240,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/megakernel.cu",
         "replaces": "project3_cuda_path_tracer_tpu/ops/megakernel.py:149",
         "launches": launches, "max_abs_err": main_cmp["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms}] + mesh + probes}), flush=True)
+        "library_ms": None, **k1}] + mesh + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,12 @@ serves every scene and camera.
 
 `iteration()` is the wrapper the renderer calls: it checks its inputs, then
 runs `iteration_plain` (the torch-op wavefront chain, render/integrator.
-trace_wavefront) for CPU tensors and launches the kernel for CUDA tensors.
-`LAUNCHES` counts kernel launches.
+trace_wavefront) for CPU tensors and launches the kernel for CUDA tensors,
+always in its persistent schedule (warps that refill dead lanes from a
+pixel counter). `_iteration_grid` launches the same kernel in the first
+port's one-thread-per-pixel schedule; only the A/B and the bitwise check
+(chip_smoke.py, the `cuda` test) call it. `LAUNCHES` counts every kernel
+launch, `LAUNCHES_GRID` those of the grid schedule.
 
 Samplers (the `sampler` argument):
   "philox"     the kernel draws Philox4x32-10 keyed on the seed, counter
@@ -35,7 +39,8 @@ import torch
 from ..scene import types as T
 from ..utils import cuda_build
 
-LAUNCHES = 0
+LAUNCHES = 0       # K1 launches, both schedules
+LAUNCHES_GRID = 0  # of which the grid schedule
 
 MAX_GEOMS = 32
 SAMPLERS = {"philox": 0, "stratified": 1, "uniforms": 2}
@@ -56,6 +61,7 @@ HEADER = 20
 GEOM_STRIDE = 40
 MAT_STRIDE = 16
 MAX_TABLE_BYTES = 48 * 1024  # default dynamic shared memory of a block
+SCHEDULES = {"persistent": 0, "grid": 1}
 
 
 def _unsupported(scene: T.Scene) -> Optional[str]:
@@ -250,14 +256,134 @@ def _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u):
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("megakernel")
-    fn = lib.megakernel_iteration
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_int] * 7 + [ctypes.c_uint32, ctypes.c_uint32]
-                   + [ctypes.c_void_p] * 3)
+    head = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_int] * 7 + [ctypes.c_uint32, ctypes.c_uint32]
+            + [ctypes.c_void_p] * 2)
+    lib.megakernel_iteration.argtypes = head + [ctypes.c_int] + [
+        ctypes.c_void_p] * 3
+    lib.megakernel_iteration_grid.argtypes = head + [ctypes.c_void_p] * 2
+    lib.megakernel_attributes.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.megakernel_iteration, lib.megakernel_iteration_grid,
+               lib.megakernel_attributes):
+        fn.restype = ctypes.c_int
     lib.megakernel_error_string.restype = ctypes.c_char_p
     lib.megakernel_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+_COUNTERS = {}  # (device index, stream) -> the persistent schedule's counter
+
+
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    """4 bytes of scratch for the pixel counter, one per device and stream
+    (the C entry point zeroes it on the stream before each launch)."""
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.empty((1,), dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"megakernel {what} failed: "
+                           + lib.megakernel_error_string(rc).decode())
+
+
+def _attributes(schedule: int, sampler: int, motion: int,
+                smem_bytes: int) -> tuple:
+    """(registers, local bytes, max threads per block, resident blocks per
+    SM, static shared bytes) of one instance on the current device."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib.megakernel_attributes(schedule, sampler, motion,
+                                        smem_bytes, out), lib, "attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_blocks(device_index: int, sampler: int, motion: int,
+                       smem_bytes: int) -> int:
+    """The persistent grid that fills the card: SMs x the instance's
+    resident blocks, worked out once per device, instance and table size."""
+    with torch.cuda.device(device_index):
+        per_sm = _attributes(SCHEDULES["persistent"], sampler, motion,
+                             smem_bytes)[3]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
+def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
+            seed: int, sampler: str, cam_u=None, u=None, *,
+            stats: Optional[torch.Tensor] = None):
+    """Check the inputs and launch one schedule of the kernel on the current
+    stream (CUDA tensors only); count it. `stats`, an int64 [2] tensor on
+    the card, gets the busy and the total lane slots of the bounce steps
+    added."""
+    global LAUNCHES, LAUNCHES_GRID
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {tuple(SCHEDULES)}")
+    _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
+    if accum.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {accum.device}")
+    if stats is not None:
+        if stats.dtype != torch.int64 or tuple(stats.shape) != (2,) \
+                or stats.device != accum.device or not stats.is_contiguous():
+            raise ValueError("stats must be a contiguous int64 [2] tensor "
+                             "on the accumulator's device")
+    lib = _kernel_lib()
+    with torch.cuda.device(accum.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (accum.data_ptr(), scene_table.data_ptr(), scene_table.numel(),
+                cfg.width, cfg.height, cfg.trace_depth, int(cfg.antialias),
+                int(cfg.dof), int(cfg.motion), SAMPLERS[sampler],
+                iteration & 0xFFFFFFFF, seed32(seed, iteration),
+                cam_u.data_ptr() if cam_u is not None else None,
+                u.data_ptr() if u is not None else None)
+        st = stats.data_ptr() if stats is not None else None
+        if schedule == "persistent":
+            blocks = _persistent_blocks(
+                accum.device.index, SAMPLERS[sampler], int(cfg.motion),
+                4 * scene_table.numel())
+            rc = lib.megakernel_iteration(
+                *args, blocks, _counter(accum.device, stream).data_ptr(), st,
+                stream)
+        else:
+            rc = lib.megakernel_iteration_grid(*args, st, stream)
+    _raise_on(rc, lib, "launch")
+    LAUNCHES += 1
+    if schedule == "grid":
+        LAUNCHES_GRID += 1
+    return accum
+
+
+def _iteration_grid(accum, scene_table, cfg, iteration: int, seed: int,
+                    sampler: str, cam_u=None, u=None, *,
+                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`iteration` in the first port's schedule, one thread per pixel (CUDA
+    tensors only): the A/B and the bitwise check of the two schedules."""
+    return _launch("grid", accum, scene_table, cfg, iteration, seed, sampler,
+                   cam_u, u, stats=stats)
+
+
+def kernel_attributes(device, smem_bytes: int) -> list:
+    """Registers, local memory bytes (stack frame and spills), max threads
+    per block and resident blocks per SM (with `smem_bytes` of scene table)
+    of every kernel instance, as the CUDA runtime reports them for
+    `device`."""
+    recs = []
+    with torch.cuda.device(device):
+        for schedule, sid in SCHEDULES.items():
+            for sampler, smp in SAMPLERS.items():
+                for motion in (False, True):
+                    out = _attributes(sid, smp, int(motion), smem_bytes)
+                    recs.append(dict(schedule=schedule, sampler=sampler,
+                                     motion=motion, registers=out[0],
+                                     local_bytes=out[1],
+                                     max_threads_per_block=out[2],
+                                     blocks_per_sm=out[3],
+                                     static_smem_bytes=out[4]))
+    return recs
 
 
 def iteration(accum: torch.Tensor, scene_table: torch.Tensor, cfg,
@@ -266,27 +392,12 @@ def iteration(accum: torch.Tensor, scene_table: torch.Tensor, cfg,
               u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """accum [H,W,3] += one progressive iteration (in place); returns accum.
 
-    CPU tensors take `iteration_plain`; CUDA tensors launch the kernel on
-    the current stream (no synchronisation) and count it in LAUNCHES."""
-    global LAUNCHES
-    _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
+    CPU tensors take `iteration_plain`; CUDA tensors launch the kernel's
+    persistent schedule on the current stream (no synchronisation) and
+    count it in LAUNCHES."""
     if accum.device.type == "cpu":
+        _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
         return iteration_plain(accum, scene_table, cfg, iteration, seed,
                                sampler, cam_u, u)
-    if accum.device.type != "cuda":
-        raise ValueError(f"unsupported device {accum.device}")
-    lib = _kernel_lib()
-    with torch.cuda.device(accum.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.megakernel_iteration(
-            accum.data_ptr(), scene_table.data_ptr(), scene_table.numel(),
-            cfg.width, cfg.height, cfg.trace_depth, int(cfg.antialias),
-            int(cfg.dof), int(cfg.motion), SAMPLERS[sampler],
-            iteration & 0xFFFFFFFF, seed32(seed, iteration),
-            cam_u.data_ptr() if cam_u is not None else None,
-            u.data_ptr() if u is not None else None, stream)
-    if rc != 0:
-        raise RuntimeError("megakernel launch failed: "
-                           + lib.megakernel_error_string(rc).decode())
-    LAUNCHES += 1
-    return accum
+    return _launch("persistent", accum, scene_table, cfg, iteration, seed,
+                   sampler, cam_u, u)

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so a
 build is one nvcc run of a few seconds. The shared library lands in the
 package's git-ignored `_build/` directory under a name keyed by a hash of the
 source, the shared `csrc/*.cuh` headers and the flags: an edited source
-builds anew, an unchanged one loads the library already there.
+builds anew, an unchanged one loads the library already there. nvcc's
+report (ptxas's registers and spills per kernel) lands beside it, in
+`<library>.log`.
 `build_all` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -68,6 +70,8 @@ def build(name: str) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                                f"{name}.cu:\n{proc.stdout}{proc.stderr}")
+        with open(out + ".log", "w") as f:  # ptxas: registers, spills
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     finally:
         if os.path.exists(tmp):

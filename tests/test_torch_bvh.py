@@ -6,8 +6,9 @@ package.
 versions of the traversal kernels (`traverse8_plain` for K2,
 `traverse_binary_plain` for K3/K4) are held against the Pallas kernels in
 interpret mode, as tests/test_bvh8.py runs them, and against a brute-force
-Moller-Trumbore over every triangle. The CUDA kernels need a card: the
-`cuda`-marked test and chip_smoke.py hold them against the plain versions.
+Moller-Trumbore over every triangle. The CUDA kernels need a card:
+tests/test_torch_cuda.py and chip_smoke.py hold them against the plain
+versions.
 
 The blob (81,920 triangles) is built once, by the JAX parser, and carried
 over (`mesh_bundle_from_numpy`); the torus (12,288 faces) is built by both.
@@ -303,26 +304,3 @@ def test_wrapper_rejects_bad_inputs(kind, bad, torus):
     fn = P8.traverse8 if kind == "bvh8" else PPB.traverse
     with pytest.raises((TypeError, ValueError)):
         fn(o, d, packed, t_bound=tb)
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card(torus):
-    """K2, K3 and K4 against their plain versions on the card (needs a card
-    and nvcc; chip_smoke.py runs the full checks on the blob)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dev = torch.device("cuda")
-    o, d = (tuple(c.to(dev) for c in _torch(a))
-            for a in _aimed_rays(8192, seed=6))
-    p8 = P8.PackedMesh8(*(t.to(dev) for t in P8.pack_mesh8(torus[1])))
-    pb = PPB.PackedMesh(*(t.to(dev) for t in PPB.pack_mesh(torus[1])))
-    got = P8.traverse8(o, d, p8, return_pops=True)
-    want = P8.traverse8_plain(o, d, p8)
-    torch.cuda.synchronize()
-    assert (got[4] == want[4]).float().mean() >= 0.99
-    assert (got[5] == want[5]).float().mean() >= 0.99
-    plain = PPB.traverse_binary_plain(o, d, pb)
-    for sub in (False, True):
-        k = PPB.traverse(o, d, pb, sub_packets=sub)
-        torch.cuda.synchronize()
-        assert (k[4] == plain[4]).float().mean() >= 0.99

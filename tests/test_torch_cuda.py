@@ -1,0 +1,172 @@
+"""The port's CUDA kernels against their plain torch versions, on a card.
+
+K1 (csrc/megakernel.cu) in both schedules, K2-K4 (csrc/bvh8.cu,
+csrc/bvh_binary.cu) and the probes P1/P2 (csrc/gather.cu,
+csrc/extract_cost.cu). Every test here is `cuda`-marked and skips without a
+card. The file imports neither JAX nor the JAX package, so it runs where
+they are absent:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+
+(`--noconftest`: tests/conftest.py sets up JAX's CPU backend). The plain
+versions are held against the JAX package in the other test_torch_*.py
+files; chip_smoke.py holds the kernels against them at the main path's
+shapes.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from project3_cuda_path_tracer_tpu_torch import load_scene
+from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
+from project3_cuda_path_tracer_tpu_torch.render.integrator import \
+    build_trace_config
+from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
+from project3_cuda_path_tracer_tpu_torch.tools import exp_extract_cost as P2
+from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = os.path.join(REPO, "scenes")
+TORUS = os.path.join(SCENES, "meshes", "torus.obj")
+
+
+def assert_lane_contract(got, want, atol=1e-4, mismatch_frac=0.01,
+                         mean_tol=0.05):
+    """got/want: [3, N] radiance planes (x, y, z). Lanes agree to `atol`,
+    at most `mismatch_frac` of them diverge, channel means within
+    `mean_tol` (tests/test_megakernel.py's contract)."""
+    for g, w in zip(np.asarray(got, np.float64), np.asarray(want, np.float64)):
+        bad = int((np.abs(g - w) > atol).sum())
+        assert bad <= mismatch_frac * g.size, f"{bad}/{g.size} lanes disagree"
+        assert abs(g.mean() - w.mean()) < mean_tol, \
+            f"means diverge: {g.mean():.4f} vs {w.mean():.4f}"
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _cornell(res):
+    scene = load_scene(os.path.join(SCENES, "cornell.txt"))
+    scene.camera.resolution = (res, res)
+    scene.camera.derive()
+    return scene
+
+
+def _uniforms(seed, depth, n, dev):
+    rng = np.random.default_rng(seed)
+    cam_u = torch.from_numpy(rng.random((mk.CAM_DIMS, n),
+                                        dtype=np.float32)).to(dev)
+    u = torch.from_numpy(rng.random((depth, 4, n), dtype=np.float32)).to(dev)
+    return cam_u, u
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """The CUDA kernel against iteration_plain on injected uniforms (needs a
+    card and nvcc; the full check at the main path's shapes is
+    chip_smoke.py)."""
+    _need_card()
+    scene = _cornell(64)
+    cfg = build_trace_config(scene)
+    dev = torch.device("cuda")
+    table = mk.pack_scene(scene, dev)
+    n = 64 * 64
+    cam_u, u = _uniforms(0, cfg.trace_depth, n, dev)
+    before = mk.LAUNCHES
+    got = mk.iteration(torch.zeros((64, 64, 3), device=dev), table, cfg, 0,
+                       0, "uniforms", cam_u, u)
+    want = mk.iteration_plain(torch.zeros((64, 64, 3), device=dev), table,
+                              cfg, 0, 0, "uniforms", cam_u, u)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == before + 1
+    assert_lane_contract(got.reshape(n, 3).T.cpu().numpy(),
+                         want.reshape(n, 3).T.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", sorted(mk.SAMPLERS))
+def test_schedules_equal_bitwise_on_card(sampler):
+    """The persistent schedule (the renderer's) and the grid schedule give
+    equal accumulators bit for bit at 128x128 depth 8, and each holds the
+    lane contract against iteration_plain where the draws can match (the
+    plain version's Philox stream is torch's, not the kernel's)."""
+    _need_card()
+    res = 128
+    scene = _cornell(res)
+    cfg = build_trace_config(scene)
+    dev = torch.device("cuda")
+    table = mk.pack_scene(scene, dev)
+    n = res * res
+    cam_u = u = None
+    if sampler == "uniforms":
+        cam_u, u = _uniforms(4, cfg.trace_depth, n, dev)
+    args = (table, cfg, 3, 5, sampler, cam_u, u)
+    before = (mk.LAUNCHES, mk.LAUNCHES_GRID)
+    pers = mk.iteration(torch.zeros((res, res, 3), device=dev), *args)
+    grid = mk._iteration_grid(torch.zeros((res, res, 3), device=dev), *args)
+    torch.cuda.synchronize()
+    assert (mk.LAUNCHES, mk.LAUNCHES_GRID) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(pers, grid) and float(pers.sum()) > 0
+    if sampler != "philox":
+        want = mk.iteration_plain(torch.zeros((res, res, 3), device=dev),
+                                  *args).reshape(n, 3).T.cpu().numpy()
+        for got in (pers, grid):
+            assert_lane_contract(got.reshape(n, 3).T.cpu().numpy(), want)
+
+
+def _aimed_rays(n, seed, dev):
+    """Rays from random origins on a radius-3 sphere aimed near the centre
+    (the generator of tests/test_bvh8.py), as (x, y, z) planes on `dev`."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(3, n)).astype(np.float32)
+    o /= np.linalg.norm(o, axis=0, keepdims=True)
+    o *= 3.0
+    target = rng.uniform(-0.4, 0.4, size=(3, n)).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return tuple(tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                       for c in a) for a in (o, d))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """K2, K3 and K4 against their plain versions on the card (needs a card
+    and nvcc; chip_smoke.py runs the full checks on the blob)."""
+    _need_card()
+    dev = torch.device("cuda")
+    torus = PB.build_mesh_bundle([TORUS])
+    o, d = _aimed_rays(8192, 6, dev)
+    p8 = P8.PackedMesh8(*(t.to(dev) for t in P8.pack_mesh8(torus)))
+    pb = PPB.PackedMesh(*(t.to(dev) for t in PPB.pack_mesh(torus)))
+    got = P8.traverse8(o, d, p8, return_pops=True)
+    want = P8.traverse8_plain(o, d, p8)
+    torch.cuda.synchronize()
+    assert (got[4] == want[4]).float().mean() >= 0.99
+    assert (got[5] == want[5]).float().mean() >= 0.99
+    plain = PPB.traverse_binary_plain(o, d, pb)
+    for sub in (False, True):
+        k = PPB.traverse(o, d, pb, sub_packets=sub)
+        torch.cuda.synchronize()
+        assert (k[4] == plain[4]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["gather", "extract_cost"])
+def test_probe_kernels_match_plain_on_card(probe):
+    """On the card: the kernels equal their plain versions bit for bit."""
+    _need_card()
+    if probe == "gather":
+        table, _, idx = P1.inputs(256, n=1 << 20)
+        got, want = P1.gather(table, idx), P1.gather_plain(table, idx)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        table, state = P2.inputs()
+        for kind in P2.KINDS:
+            assert torch.equal(P2.extract_cost(table, state, kind, 64),
+                               P2.extract_cost_plain(table, state, kind, 64))

@@ -4,8 +4,9 @@
 iteration on injected uniforms; the same uniforms drive the JAX wavefront
 chain (intersect_planar -> shade_planar, the loop of render/integrator.
 trace_wavefront) and the Pallas megakernel in interpret mode
-(`run_interpret_with_uniforms`). The CUDA kernel itself needs a card: the
-`cuda`-marked test and chip_smoke.py hold it against `iteration_plain`.
+(`run_interpret_with_uniforms`). The CUDA kernel itself needs a card:
+tests/test_torch_cuda.py and chip_smoke.py hold it against
+`iteration_plain`, and its two schedules against each other.
 
 Contract (tests/test_megakernel.py): the programs are compiled separately,
 so an ulp can flip a binary decision (nearest-hit ties, the frame pick at
@@ -34,6 +35,7 @@ from project3_cuda_path_tracer_tpu_torch.render.integrator import \
     build_trace_config
 from project3_cuda_path_tracer_tpu_torch.scene import types as PT
 from project3_cuda_path_tracer_tpu_torch.scene.convert import scene_from_numpy
+from test_torch_cuda import assert_lane_contract
 
 torch.set_num_threads(2)
 
@@ -44,16 +46,6 @@ CASES = {  # name: (resolution, depth, numpy seed, atol, divergent fraction)
     "sphere": (16, 2, 2, 1e-4, 0.01),
     "cornell_glass": (16, 4, 3, 2e-4, 0.02),
 }
-
-
-def assert_lane_contract(got, want, atol=1e-4, mismatch_frac=0.01,
-                         mean_tol=0.05):
-    """got/want: [3, N] radiance planes (x, y, z)."""
-    for g, w in zip(np.asarray(got, np.float64), np.asarray(want, np.float64)):
-        bad = int((np.abs(g - w) > atol).sum())
-        assert bad <= mismatch_frac * g.size, f"{bad}/{g.size} lanes disagree"
-        assert abs(g.mean() - w.mean()) < mean_tol, \
-            f"means diverge: {g.mean():.4f} vs {w.mean():.4f}"
 
 
 def _sized(name, res):
@@ -228,31 +220,11 @@ def test_wrapper_rejects_bad_inputs(bad):
         mk.iteration(**args)
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against iteration_plain on injected uniforms (needs a
-    card and nvcc; the full check at the main path's shapes is
-    chip_smoke.py)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    scene = load_scene(os.path.join(SCENES, "cornell.txt"))
-    scene.camera.resolution = (64, 64)
-    scene.camera.derive()
-    cfg = build_trace_config(scene)
-    dev = torch.device("cuda")
-    table = mk.pack_scene(scene, dev)
-    rng = np.random.default_rng(0)
-    n = 64 * 64
-    cam_u = torch.from_numpy(rng.random((mk.CAM_DIMS, n),
-                                        dtype=np.float32)).to(dev)
-    u = torch.from_numpy(rng.random((cfg.trace_depth, 4, n),
-                                    dtype=np.float32)).to(dev)
-    before = mk.LAUNCHES
-    got = mk.iteration(torch.zeros((64, 64, 3), device=dev), table, cfg, 0,
-                       0, "uniforms", cam_u, u)
-    want = mk.iteration_plain(torch.zeros((64, 64, 3), device=dev), table,
-                              cfg, 0, 0, "uniforms", cam_u, u)
-    torch.cuda.synchronize()
-    assert mk.LAUNCHES == before + 1
-    assert_lane_contract(got.reshape(n, 3).T.cpu().numpy(),
-                         want.reshape(n, 3).T.cpu().numpy())
+def test_grid_schedule_needs_cuda_tensors():
+    """The grid schedule exists for the A/B on the card: CPU tensors raise
+    rather than take the plain version, and nothing is counted."""
+    cfg, table, acc = _wrapper_inputs()
+    before = (mk.LAUNCHES, mk.LAUNCHES_GRID)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk._iteration_grid(acc, table, cfg, 0, 0, "philox")
+    assert (mk.LAUNCHES, mk.LAUNCHES_GRID) == before

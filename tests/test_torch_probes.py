@@ -166,20 +166,3 @@ def test_lane_sum_is_the_halving_tree():
         want = torch.stack([want[i] + want[i + h] for i in range(h)])
         h //= 2
     assert torch.equal(P2._lane_sum(x), want[0])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("probe", ["gather", "extract_cost"])
-def test_probe_kernels_match_plain_on_card(probe):
-    """On the card: the kernels equal their plain versions bit for bit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    if probe == "gather":
-        table, _, idx = P1.inputs(256, n=1 << 20)
-        got, want = P1.gather(table, idx), P1.gather_plain(table, idx)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    else:
-        table, state = P2.inputs()
-        for kind in P2.KINDS:
-            assert torch.equal(P2.extract_cost(table, state, kind, 64),
-                               P2.extract_cost_plain(table, state, kind, 64))
