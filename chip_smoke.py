@@ -16,7 +16,11 @@ once) and drives these paths:
     `Renderer` and the CLI: the wavefront route, whose BVH traversals are
     K2 (8-wide tree) or, with the binary packing, K3 and K4; each is held
     against its plain version on aimed rays, the primary rays and one
-    diffuse bounce of the blob;
+    diffuse bounce of the blob; K2's two schedules (persistent warps
+    refilling finished lanes, the renderer's; one thread per ray, `grid`)
+    and its tiny-stack instance held equal bit for bit, and the schedules
+    timed in turns with each one's busy lane share, deepest stack,
+    registers, spills and global loads in the SASS;
   - the train step (models/inverse.py): gradients on the card against the
     CPU's at 64x64 depth 8; the history step on cornell 800x800 depth 8,
     timed, with its peak memory; InverseRenderer fitting an albedo back;
@@ -382,6 +386,9 @@ def schedules_equal() -> None:
 
 # A K1 instance's mangled name: megakernel<SCHED, SAMPLER, MOTION>.
 K1_MANGLED = re.compile(r"megakernelILi(\d)ELi(\d)ELb(\d)E")
+# A K2 instance's: traverse8_kernel<SCHED, ANY_HIT, S> (SCHED 0 persistent,
+# 1 grid; the tiny instance's shared stack holds 2 entries, the others' 24).
+K2_MANGLED = re.compile(r"traverse8_kernelILi(\d)ELb(\d)ELi(\d+)E")
 
 
 def k1_instance(m: re.Match) -> tuple:
@@ -392,33 +399,44 @@ def k1_instance(m: re.Match) -> tuple:
     return schedule, sampler, m.group(3) == "1"
 
 
-def ptxas_report(log_path: str) -> dict:
-    """(schedule, sampler, motion) -> registers, spill bytes and stack frame
-    of each K1 instance, from nvcc's -Xptxas -v report of the build."""
+def k2_instance(m: re.Match) -> tuple:
+    """(instance, any_hit) of a K2_MANGLED match, instance as
+    `bvh8.INSTANCES` names it."""
+    instance = ("grid" if m.group(1) == "1" else
+                "tiny" if int(m.group(3)) < 8 else "persistent")
+    return instance, m.group(2) == "1"
+
+
+def ptxas_report(log_path: str, mangled: re.Pattern, key) -> dict:
+    """key(match) -> registers, spill bytes and stack frame of each kernel
+    instance whose name `mangled` matches, from nvcc's -Xptxas -v report
+    of the build."""
     with open(log_path) as f:
         lines = f.read().splitlines()
-    out, key = {}, None
+    out, k = {}, None
     for line in lines:
-        m = K1_MANGLED.search(line)
+        m = mangled.search(line)
         if m and "Compiling entry" in line:
-            key = k1_instance(m)
-            out[key] = {}
+            k = key(m)
+            out[k] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m and key:
-            out[key].update(stack_bytes=int(m.group(1)),
-                            spill_store_bytes=int(m.group(2)),
-                            spill_load_bytes=int(m.group(3)))
+        if m and k:
+            out[k].update(stack_bytes=int(m.group(1)),
+                          spill_store_bytes=int(m.group(2)),
+                          spill_load_bytes=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and key:
-            out[key]["ptxas_registers"] = int(m.group(1))
+        if m and k:
+            out[k]["ptxas_registers"] = int(m.group(1))
     return out
 
 
-def sass_loads(lib_path: str) -> dict:
-    """(schedule, sampler, motion) -> count of each shared-memory load
-    opcode (LDS, LDS.64, LDS.128) in the instance's SASS, by cuobjdump;
-    empty when the toolkit has no cuobjdump."""
+def sass_counts(lib_path: str, mangled: re.Pattern, key,
+                opcodes: str) -> dict:
+    """key(match) -> count of each opcode matching `opcodes` (a regex of
+    opcode stems, e.g. "LDS" or "LDG|LDL|STL") with its suffixes (LDS.128,
+    LDG.E.128.CONSTANT) in each instance's SASS, by cuobjdump; empty when
+    the toolkit has no cuobjdump."""
     from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
@@ -426,16 +444,17 @@ def sass_loads(lib_path: str) -> dict:
         return {}
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    out, key = {}, None
+    op = re.compile(rf"\b((?:{opcodes})(?:\.[A-Z0-9_]+)*) ")
+    out, k = {}, None
     for line in sass.splitlines():
-        m = K1_MANGLED.search(line)
+        m = mangled.search(line)
         if m and "Function :" in line:
-            key = k1_instance(m)
-            out[key] = {}
+            k = key(m)
+            out[k] = {}
             continue
-        m = re.search(r"\b(LDS(?:\.[A-Z0-9]+)*) ", line)
-        if m and key:
-            out[key][m.group(1)] = out[key].get(m.group(1), 0) + 1
+        m = op.search(line)
+        if m and k:
+            out[k][m.group(1)] = out[k].get(m.group(1), 0) + 1
     return out
 
 
@@ -483,8 +502,8 @@ def k1_timing(gpu: str, table: torch.Tensor, cfg) -> dict:
     plain_ms.append(time_ms(plain_step, 20))
     step_ms = [time_ms(renderer.step, 100), time_ms(renderer.step, 100)]
     lib = cuda_build.library_path("megakernel")
-    spills = ptxas_report(lib + ".log")
-    loads = sass_loads(lib)
+    spills = ptxas_report(lib + ".log", K1_MANGLED, k1_instance)
+    loads = sass_counts(lib, K1_MANGLED, k1_instance, "LDS")
     instances = []
     for rec in mk.kernel_attributes(dev, 4 * table.numel()):
         key = (rec["schedule"], rec["sampler"], rec["motion"])
@@ -530,6 +549,23 @@ def k1_timing(gpu: str, table: torch.Tensor, cfg) -> dict:
                 bound_ms=k1["bound_ms"], bound_by=k1["bound_by"])
 
 
+def same_bits(a, b) -> bool:
+    """Two K2 results (t, normal, u, v, tri, pops) equal bit for bit."""
+    fa = torch.stack([a[0], *a[1], a[2], a[3]]).view(torch.int32)
+    fb = torch.stack([b[0], *b[1], b[2], b[3]]).view(torch.int32)
+    return (torch.equal(fa, fb) and torch.equal(a[4], b[4])
+            and torch.equal(a[5], b[5]))
+
+
+def lane_utilisation(pops: torch.Tensor) -> float:
+    """The busy lane share one thread per ray can reach on these rays: a
+    warp of 32 consecutive rays runs as many pop steps as its longest ray,
+    so Σ pops / Σ (32 × the max pops of each 32 consecutive rays)."""
+    p = pops.double()
+    w = torch.nn.functional.pad(p, (0, (-p.numel()) % 32)).reshape(-1, 32)
+    return float(w.sum() / (32 * w.max(dim=1).values).sum())
+
+
 def mesh_phases(outdir: str, gpu: str) -> list:
     """Every mesh-path phase; returns the `kernels` entries of K2-K4."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
@@ -548,33 +584,56 @@ def mesh_phases(outdir: str, gpu: str) -> list:
         raise AssertionError(f"mesh.txt is {w}x{h} depth {depth}")
 
     # ---- 8a. K2, K3, K4 against their plain versions -----------------------
+    # K2's persistent instance (traverse8, the renderer's) also against its
+    # grid instance (the first port's schedule) bit for bit in both modes,
+    # and, on the aimed rays, against the tiny-stack instance (the local
+    # overflow).
     probe = Renderer(scene, device="cuda")
     p8 = probe.packed_meshes[0]
     pb = PB.PackedMesh(*(t.to(dev) for t in PB.pack_mesh(scene.meshes)))
     bounce0, bounce1 = mesh_wavefronts(probe)
+    waves = {"bounce-0": bounce0, "bounce-1": bounce1}
     errs = dict(K2=0.0, K3=0.0, K4=0.0)
-    mean_pops = {}
+    mean_pops, util = {}, {}
     for tag, (qo, qd, tb) in (("aimed 65536", aimed_rays(65536, dev)),
-                              ("primary 1024x1024", bounce0),
+                              ("bounce-0 1024x1024", bounce0),
                               ("bounce-1 1024x1024", bounce1)):
         k = P8.traverse8(qo, qd, p8, t_bound=tb, return_pops=True)
         p = P8.traverse8_plain(qo, qd, p8, t_bound=tb)
         torch.cuda.synchronize()
         rec = traversal_check(f"K2 {tag}", k[:5], p[:5], pops=(k[5], p[5]))
         errs["K2"] = max(errs["K2"], rec["max_abs_err"])
-        mean_pops[tag] = rec["mean_pops"]
+        mean_pops[tag.split()[0]] = rec["mean_pops"]
+        util[tag.split()[0]] = lane_utilisation(p[5])
         hit = k[4] >= 0
         half = P8.traverse8(qo, qd, p8, t_bound=torch.where(hit, 0.5 * k[0],
                                                             tb))
-        occl = P8.traverse8(qo, qd, p8, t_bound=tb, any_hit=True)
+        occl = P8.traverse8(qo, qd, p8, t_bound=tb, any_hit=True,
+                            return_pops=True)
         torch.cuda.synchronize()
         pruned = not bool((half[4][hit] >= 0).any())
         same_mask = torch.equal(occl[4] >= 0, hit)
         log(json.dumps(dict(check=f"K2 bound and any_hit {tag}",
                             hits=int(hit.sum()), half_bound_all_miss=pruned,
-                            any_hit_mask_equal=same_mask)))
+                            any_hit_mask_equal=same_mask,
+                            one_thread_per_ray_utilisation=util[
+                                tag.split()[0]])))
         if not (pruned and same_mask):
             raise AssertionError(f"K2 {tag}: occlusion bound or any_hit")
+        for mode, pers in (("nearest", k), ("any_hit", occl)):
+            args = (qo, qd, p8, tb, mode == "any_hit", True)
+            others = {"grid": P8._traverse8_grid(*args)}
+            if tag.startswith("aimed"):
+                others["tiny stack"] = P8._traverse8_tiny(*args)
+            torch.cuda.synchronize()
+            for name, other in others.items():
+                equal = same_bits(pers, other)
+                check = f"K2 persistent vs {name} {tag} {mode}"
+                log(json.dumps(dict(check=check, bitwise=equal,
+                                    hits=int((pers[4] >= 0).sum()),
+                                    pops=int(pers[5].sum()))))
+                if not equal:
+                    raise AssertionError(f"{check}: results differ")
         plain_b = PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
         binary = {}
         for name, sub in (("K3", False), ("K4", True)):
@@ -589,16 +648,19 @@ def mesh_phases(outdir: str, gpu: str) -> list:
             raise AssertionError(f"K2 and K3 disagree on {tag}: {agree}")
 
     # ---- 8b. the mesh path: Renderer on mesh.txt ---------------------------
-    mk.LAUNCHES = P8.LAUNCHES = PB.LAUNCHES = PB.LAUNCHES_SUB = 0
+    mk.LAUNCHES = P8.LAUNCHES = P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
+    PB.LAUNCHES = PB.LAUNCHES_SUB = 0
     r = Renderer(scene, device="cuda")
     r.step_many(8)
     torch.cuda.synchronize()
     k2_launches = P8.LAUNCHES
-    others = (mk.LAUNCHES, PB.LAUNCHES, PB.LAUNCHES_SUB)
+    others = (mk.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PB.LAUNCHES,
+              PB.LAUNCHES_SUB)
     if r.route != "wavefront" or k2_launches != 8 * 8 or any(others):
         raise AssertionError(f"mesh path: route {r.route}, K2 launched "
-                             f"{k2_launches} times (want 64), K1/K3/K4 "
-                             f"{others} (want none)")
+                             f"{k2_launches} times persistent (want 64), "
+                             f"K1 / K2 grid / K2 tiny / K3 / K4 {others} "
+                             "(want none)")
     img = r.accum.cpu().numpy()
     if img.shape != (1024, 1024, 3) or not np.isfinite(img).all() \
             or (img < 0).any():
@@ -607,6 +669,7 @@ def mesh_phases(outdir: str, gpu: str) -> list:
     log(json.dumps(dict(phase="mesh main path", scene="scenes/mesh.txt",
                         resolution=[w, h], depth=depth,
                         iterations=r.iteration, launches=k2_launches,
+                        grid_launches=others[1],
                         megakernel_launches=others[0],
                         mean=float(img.mean() / r.iteration), png=png)))
 
@@ -672,93 +735,282 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                         value=float(np.mean(runs)), runs=runs,
                         config="mesh.txt 1024x1024 depth 8", gpu=gpu,
                         **device_share(r, "traverse8_kernel"))))
-    times = {}
-    for tag, (qo, qd, tb) in (("bounce-0", bounce0), ("bounce-1", bounce1)):
+    bounds = traversal_bounds(gpu, p8, pb, waves)
+    k2 = k2_timing(gpu, p8, waves, util, mean_pops, bounds)
+    k2_bounces(gpu, p8, mesh_bounces(r))
+    k34 = binary_timing(gpu, pb, waves)
+    src = f"{PKG}/csrc"
+    jax_ops = "project3_cuda_path_tracer_tpu/ops"
+    entries = [dict(name="bvh8 traversal (K2)", route="cuda",
+                    source=f"{src}/bvh8.cu",
+                    replaces=f"{jax_ops}/bvh8.py:355", launches=k2_launches,
+                    max_abs_err=errs["K2"],
+                    ms=k2[("persistent", "bounce-0")][0],
+                    plain_ms=k2[("plain", "bounce-0")],
+                    bound_ms=bounds[("K2", "bounce-0")]["bound_ms"],
+                    bound_by=bounds[("K2", "bounce-0")]["bound_by"],
+                    library_ms=None, grid_ms=k2[("grid", "bounce-0")][0],
+                    unheld_ms=k2[("persistent", "bounce-0")][1])]
+    for name, replaces, launches in (
+            ("binary traversal (K3)", "pallas_bvh.py:128", k3_launches),
+            ("binary traversal, warp packets (K4)", "pallas_bvh.py:343",
+             k4_launches)):
+        kid = name[-3:-1]
+        b = bounds[("K3", "bounce-0")]
+        entries.append(dict(name=name, route="cuda",
+                            source=f"{src}/bvh_binary.cu",
+                            replaces=f"{jax_ops}/{replaces}",
+                            launches=launches, max_abs_err=errs[kid],
+                            ms=k34[(kid, "bounce-0")][0],
+                            plain_ms=k34[("plain", "bounce-0")],
+                            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                            library_ms=None,
+                            unheld_ms=k34[(kid, "bounce-0")][1]))
+    return entries
+
+
+def traversal_bounds(gpu: str, p8, pb, waves: dict) -> dict:
+    """(kernel, wavefront) -> the traversal's bound: each live ray's 7
+    input floats (origin, direction, t_bound) and 7 output words (t,
+    normal, uv, tri); each dead lane's (!(t_bound > 0)) bound in and 7
+    words out, which is all its miss record needs; and what the live rays
+    read of the tree, once (the rows the plain traversals read), with the
+    slab and triangle tests they make. K2 on both wavefronts, K3 on bounce
+    0 (K4's warps enter every node one of their rays enters, so it reads
+    at least what K3 reads)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    out = {}
+    for kid, tag, node_bytes, box_tests in (
+            ("K2", "bounce-0", NODE8_BYTES, 8),
+            ("K2", "bounce-1", NODE8_BYTES, 8),
+            ("K3", "bounce-0", NODE2_BYTES, 1)):
+        qo, qd, tb = waves[tag]
         n = int(qo[0].shape[0])
-
-        def k2():
-            P8.traverse8(qo, qd, p8, t_bound=tb)
-
-        def k2_plain():
-            P8.traverse8_plain(qo, qd, p8, t_bound=tb)
-
-        def k3():
-            PB.traverse(qo, qd, pb, t_bound=tb)
-
-        def k4():
-            PB.traverse(qo, qd, pb, t_bound=tb, sub_packets=True)
-
-        def binary_plain():
-            PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
-
-        # plain, kernel, kernel, plain: both see the same card state
-        plain8 = [time_ms(k2_plain, 1, warm=1)]
-        kern = {"K2": [time_ms(k2, 20), time_ms(k2, 20)]}
-        plain8.append(time_ms(k2_plain, 1, warm=0))
-        plainb = [time_ms(binary_plain, 1, warm=1)]
-        kern["K3"] = [time_ms(k3, 20), time_ms(k3, 20)]
-        kern["K4"] = [time_ms(k4, 20), time_ms(k4, 20)]
-        plainb.append(time_ms(binary_plain, 1, warm=0))
-        for name, plain in (("K2", plain8), ("K3", plainb), ("K4", plainb)):
-            times[(name, tag)] = (float(np.mean(kern[name])),
-                                  float(np.mean(plain)))
-            log(json.dumps(dict(
-                metric=f"{name}_traversal_ms", wavefront=tag, rays=n,
-                kernel_ms=times[(name, tag)][0], kernel_runs=kern[name],
-                plain_ms=times[(name, tag)][1], plain_runs=plain,
-                mean_pops_per_ray=(mean_pops["primary 1024x1024"]
-                                   if tag == "bounce-0" else
-                                   mean_pops["bounce-1 1024x1024"]),
-                gpu=gpu)))
-
-    # Bounds on the bounce-0 wavefront (the entries' `ms`): each ray's 7
-    # input floats (origin, direction, t_bound) and 7 output words (t,
-    # normal, uv, tri), and what this wavefront reads of the tree, once
-    # (the rows the plain traversals read); the slab and triangle tests it
-    # makes. K4's warps enter every node one of their rays enters, so it
-    # reads at least what K3 reads.
-    qo, qd, tb = bounce0
-    n0 = int(qo[0].shape[0])
-    ray_bytes = n0 * (7 + 7) * 4
-    reads = {
-        "K2": tree_reads(lambda p: P8.traverse8_plain(qo, qd, p, tb), p8,
-                         "nodes"),
-        "K3": tree_reads(lambda p: PB.traverse_binary_plain(qo, qd, p, tb),
-                         pb, "nodes_f")}
-    bounds = {}
-    for kid, node_bytes, box_tests in (("K2", NODE8_BYTES, 8),
-                                       ("K3", NODE2_BYTES, 1)):
-        rd = reads[kid]
-        bounds[kid] = dict(bound(
-            ray_bytes + rd["node_rows"] * node_bytes
+        live = tb > 0
+        n_dead = n - int(live.sum())
+        lo, ld = tuple(c[live] for c in qo), tuple(c[live] for c in qd)
+        if kid == "K2":
+            rd = tree_reads(lambda p: P8.traverse8_plain(lo, ld, p, tb[live]),
+                            p8, "nodes")
+        else:
+            rd = tree_reads(
+                lambda p: PB.traverse_binary_plain(lo, ld, p, tb[live]), pb,
+                "nodes_f")
+        out[(kid, tag)] = dict(bound(
+            (n - n_dead) * (7 + 7) * 4 + n_dead * (1 + 7) * 4
+            + rd["node_rows"] * node_bytes
             + rd["tri_rows"] * TRI_TEST_BYTES
             + rd["hit_tris"] * TRI_HIT_BYTES,
             rd["node_visits"] * box_tests * BOX_OPS
             + rd["tri_tests"] * TRI_OPS), **rd)
-    bounds["K4"] = bounds["K3"]
-    for kid, b in bounds.items():
-        log(json.dumps(dict(metric=f"{kid}_bound", wavefront="bounce-0",
-                            rays=n0, **b, gpu=gpu)))
-    src = f"{PKG}/csrc"
-    jax_ops = "project3_cuda_path_tracer_tpu/ops"
-    entries = []
-    for name, source, replaces, launches in (
-            ("bvh8 traversal (K2)", "bvh8.cu", "bvh8.py:355", k2_launches),
-            ("binary traversal (K3)", "bvh_binary.cu", "pallas_bvh.py:128",
-             k3_launches),
-            ("binary traversal, warp packets (K4)", "bvh_binary.cu",
-             "pallas_bvh.py:343", k4_launches)):
-        kid = name[-3:-1]
-        ms, plain_ms = times[(kid, "bounce-0")]
-        entries.append(dict(name=name, route="cuda",
-                            source=f"{src}/{source}",
-                            replaces=f"{jax_ops}/{replaces}",
-                            launches=launches, max_abs_err=errs[kid],
-                            ms=ms, plain_ms=plain_ms,
-                            bound_ms=bounds[kid]["bound_ms"],
-                            bound_by=bounds[kid]["bound_by"],
-                            library_ms=None))
-    return entries
+        log(json.dumps(dict(metric=f"{kid}_bound", wavefront=tag, rays=n,
+                            dead_lanes=n_dead, **out[(kid, tag)], gpu=gpu)))
+    return out
+
+
+def k2_timing(gpu: str, p8, waves: dict, util: dict, mean_pops: dict,
+              bounds: dict) -> dict:
+    """Phase 8d for K2 on each wavefront: each schedule's busy lane share
+    and deepest stack (one counted launch each), then plain, persistent,
+    grid, grid, persistent, plain, each schedule's turn timed twice: by its
+    kernel (the stream held while the host enqueues, utils/device.time_ms)
+    and with its host side (no hold); every instance's registers, spills,
+    local memory and global loads in the SASS; the floors (all lanes dead,
+    every ray one pop). Returns {(schedule,
+    wavefront): (held ms, unheld ms)} and {("plain", wavefront): ms}."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    dev = torch.device("cuda")
+    lib = cuda_build.library_path("bvh8")
+    spills = ptxas_report(lib + ".log", K2_MANGLED, k2_instance)
+    loads = sass_counts(lib, K2_MANGLED, k2_instance, "LDG|LDL|STL|LDS|STS")
+    instances = []
+    for rec in P8.kernel_attributes(dev):
+        key = (rec["instance"], rec["any_hit"])
+        sass = loads.get(key, {})
+        ldg = {k: v for k, v in sass.items() if k.startswith("LDG")}
+        instances.append(dict(
+            rec, **spills.get(key, {}), sass_loads=sass or "not measured",
+            ldg_128=sum(v for k, v in ldg.items() if ".128" in k),
+            ldg_scalar=sum(v for k, v in ldg.items()
+                           if ".64" not in k and ".128" not in k)))
+    log(json.dumps(dict(k2_instances=instances, gpu=gpu)))
+    if any(r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1)
+           for r in instances):
+        raise AssertionError("a K2 instance spills (or ptxas gave no report)")
+    main = {r["instance"]: r for r in instances if not r["any_hit"]}
+    out = {}
+    for tag, (qo, qd, tb) in waves.items():
+        n = int(qo[0].shape[0])
+
+        def launch(sched, stats=None):
+            return lambda: P8._launch(sched, qo, qd, p8, tb, stats=stats)
+
+        def plain():
+            P8.traverse8_plain(qo, qd, p8, t_bound=tb)
+
+        lanes = {}
+        for sched in ("persistent", "grid"):
+            st = torch.zeros((3,), dtype=torch.int64, device=dev)
+            launch(sched, st)()
+            torch.cuda.synchronize()
+            lanes[sched] = [int(v) for v in st.cpu()]
+        plain_ms = [time_ms(plain, 1, warm=1)]
+        held = {"persistent": [], "grid": []}
+        unheld = {"persistent": [], "grid": []}
+        for sched in ("persistent", "grid", "grid", "persistent"):
+            held[sched].append(device_ms(launch(sched), 20, warm=3))
+            unheld[sched].append(time_ms(launch(sched), 20))
+        plain_ms.append(time_ms(plain, 1, warm=0))
+        out[("plain", tag)] = float(np.mean(plain_ms))
+        b = bounds[("K2", tag)]
+        for sched in ("persistent", "grid"):
+            ms = float(np.mean(held[sched]))
+            out[(sched, tag)] = (ms, float(np.mean(unheld[sched])))
+            inst = main[sched]
+            log(json.dumps(dict(
+                metric="K2_traversal_ms", schedule=sched, wavefront=tag,
+                rays=n, value=ms, runs=held[sched],
+                unheld_ms=out[(sched, tag)][1], unheld_runs=unheld[sched],
+                plain_ms=out[("plain", tag)], plain_runs=plain_ms,
+                busy_lane_slots=lanes[sched][0], lane_slots=lanes[sched][1],
+                busy_lane_share=lanes[sched][0] / max(lanes[sched][1], 1),
+                deepest_stack=lanes[sched][2],
+                one_thread_per_ray_utilisation=util[tag],
+                mean_pops_per_ray=mean_pops[tag],
+                registers=inst["registers"],
+                spill_store_bytes=inst.get("spill_store_bytes"),
+                local_bytes=inst["local_bytes"],
+                blocks_per_sm=inst["blocks_per_sm"],
+                ldg_128=inst["ldg_128"], ldg_scalar=inst["ldg_scalar"],
+                bound_ms=b["bound_ms"], share_of_bound=b["bound_ms"] / ms,
+                gpu=gpu)))
+    # What a ray costs before any descent: the bounce-0 rays all dead (the
+    # bound read, the record written) and reversed (each pops the root
+    # only), each schedule timed held in turns.
+    qo, qd, tb = waves["bounce-0"]
+    for case, (o, d, t) in (("all dead", (qo, qd, torch.full_like(tb, -1.0))),
+                            ("reversed", (qo, tuple(-c for c in qd), tb))):
+        pops = P8.traverse8(o, d, p8, t_bound=t, return_pops=True)[5]
+        rec = dict(metric="K2_floor_ms", case=case, rays=int(pops.numel()),
+                   one_pop_share=float((pops == 1).float().mean()))
+        for sched in ("persistent", "grid", "grid", "persistent"):
+            rec.setdefault(sched, []).append(device_ms(
+                lambda: P8._launch(sched, o, d, p8, t), 20, warm=3))
+        log(json.dumps(dict(rec, gpu=gpu)))
+    return out
+
+
+def mesh_bounces(r) -> list:
+    """The inputs (qo, qd, t_bound) of every K2 launch that one iteration of
+    the mesh renderer `r` makes, one a bounce, copied as the renderer
+    passed them to `traverse8`."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    kernel, waves = P8.traverse8, []
+
+    def capture(qo, qd, packed, t_bound=None, **kwargs):
+        waves.append((tuple(c.clone() for c in qo),
+                      tuple(c.clone() for c in qd), t_bound.clone()))
+        return kernel(qo, qd, packed, t_bound=t_bound, **kwargs)
+
+    P8.traverse8 = capture
+    try:
+        r.step()
+    finally:
+        P8.traverse8 = kernel
+    torch.cuda.synchronize()
+    if len(waves) != r.cfg.trace_depth:
+        raise AssertionError(f"one mesh iteration made {len(waves)} K2 "
+                             f"launches (want {r.cfg.trace_depth})")
+    return waves
+
+
+def k2_bounces(gpu: str, p8, bounces: list) -> None:
+    """K2's two schedules on the wavefront of every bounce of one mesh.txt
+    iteration (the renderer's launches): the schedules bit for bit, each
+    one's busy lane share, the dead share, mean pops and the
+    one-thread-per-ray utilisation (from the kernel's pops), then
+    persistent, grid, grid, persistent timed with the stream held; and the
+    sums over the iteration."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    dev = torch.device("cuda")
+    total = {"persistent": 0.0, "grid": 0.0}
+    for b, (qo, qd, tb) in enumerate(bounces):
+        res, lanes = {}, {}
+        for sched in ("persistent", "grid"):
+            st = torch.zeros((3,), dtype=torch.int64, device=dev)
+            res[sched] = P8._launch(sched, qo, qd, p8, tb, return_pops=True,
+                                    stats=st)
+            torch.cuda.synchronize()
+            lanes[sched] = [int(v) for v in st.cpu()]
+        if not same_bits(res["persistent"], res["grid"]):
+            raise AssertionError(f"K2 bounce {b}: the schedules differ")
+        held = {"persistent": [], "grid": []}
+        for sched in ("persistent", "grid", "grid", "persistent"):
+            held[sched].append(device_ms(
+                lambda: P8._launch(sched, qo, qd, p8, tb), 20, warm=3))
+        pops = res["persistent"][5]
+        rec = dict(metric="K2_bounce_ms", bounce=b, rays=int(pops.numel()),
+                   bitwise=True,
+                   dead_share=float((~(tb > 0)).float().mean()),
+                   mean_pops_per_ray=float(pops.float().mean()),
+                   max_pops=int(pops.max()),
+                   one_thread_per_ray_utilisation=lane_utilisation(pops))
+        for sched in ("persistent", "grid"):
+            ms = float(np.mean(held[sched]))
+            total[sched] += ms
+            rec.update({f"{sched}_ms": ms, f"{sched}_runs": held[sched],
+                        f"{sched}_busy_lane_share":
+                            lanes[sched][0] / max(lanes[sched][1], 1)})
+        log(json.dumps(dict(rec, gpu=gpu)))
+    log(json.dumps(dict(metric="K2_iteration_ms", bounces=len(bounces),
+                        persistent_ms=total["persistent"],
+                        grid_ms=total["grid"],
+                        config="mesh.txt 1024x1024 depth 8, one iteration's "
+                               "K2 launches, each held", gpu=gpu)))
+
+
+def binary_timing(gpu: str, pb, waves: dict) -> dict:
+    """Phase 8d for K3 and K4 on each wavefront: plain, K3, K4, K4, K3,
+    plain, each kernel's turn timed held and with its host side. Returns
+    {(kernel, wavefront): (held ms, unheld ms)} and {("plain", wavefront):
+    ms}."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    out = {}
+    for tag, (qo, qd, tb) in waves.items():
+        def kernel(sub):
+            return lambda: PB.traverse(qo, qd, pb, t_bound=tb,
+                                       sub_packets=sub)
+
+        def plain():
+            PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
+
+        plain_ms = [time_ms(plain, 1, warm=1)]
+        held = {"K3": [], "K4": []}
+        unheld = {"K3": [], "K4": []}
+        for name in ("K3", "K4", "K4", "K3"):
+            fn = kernel(name == "K4")
+            held[name].append(device_ms(fn, 20, warm=3))
+            unheld[name].append(time_ms(fn, 20))
+        plain_ms.append(time_ms(plain, 1, warm=0))
+        out[("plain", tag)] = float(np.mean(plain_ms))
+        for name in ("K3", "K4"):
+            out[(name, tag)] = (float(np.mean(held[name])),
+                                float(np.mean(unheld[name])))
+            log(json.dumps(dict(
+                metric=f"{name}_traversal_ms", wavefront=tag,
+                rays=int(qo[0].shape[0]), value=out[(name, tag)][0],
+                runs=held[name], unheld_ms=out[(name, tag)][1],
+                unheld_runs=unheld[name], plain_ms=out[("plain", tag)],
+                plain_runs=plain_ms, gpu=gpu)))
+    return out
 
 
 def mesh_train(scene) -> None:

@@ -15,9 +15,11 @@
 // that was entered, else the node's escape index `skip` (-1 ends).
 //
 // What bounds it on this card: the dependent chain node row -> slab test
-// -> next cursor, one 32-byte node row and one 8-int row per step; the
-// binary tree has ~7x the nodes of the 8-wide one, so a ray takes more,
-// shorter steps than in K2. The tables stay in L2.
+// -> next cursor, one 32-byte node row and one 8-int row per step (two
+// float4 and one int2 load); the binary tree has ~7x the nodes of the
+// 8-wide one, so a ray takes more, shorter steps than in K2. The tables
+// stay in L2. All tables must be 16-byte aligned (ops/pallas_bvh.py
+// checks it).
 //
 // Interface (plain C, bound with ctypes by ops/pallas_bvh.py):
 //   qo, qd [3, n] f32; t_bound [n] f32 (<= 0: a dead lane);
@@ -51,14 +53,20 @@ __global__ void __launch_bounds__(bvh::THREADS)
     h.t = t_bound[i];
   }
 
+  // a node row is two float4s (lo.xyz hi.x, hi.yz pad) and one int2
+  // (skip, meta); a triangle row six float4s
+  const float4* nf4 = reinterpret_cast<const float4*>(nodes_f);
+  const int2* ni2 = reinterpret_cast<const int2*>(nodes_i);
+  const float4* tris4 = reinterpret_cast<const float4*>(tris);
   int cur = 0;
   while (cur >= 0) {
-    const float* nf = nodes_f + (size_t)cur * 8;
-    const int skip = __ldg(nodes_i + (size_t)cur * 8);
-    const int meta = __ldg(nodes_i + (size_t)cur * 8 + 1);
-    bool enter = bvh::box_hit(r, nf, h.t);
+    const float4 a = __ldg(nf4 + 2 * (size_t)cur);
+    const float4 b = __ldg(nf4 + 2 * (size_t)cur + 1);
+    const int2 sm = __ldg(ni2 + 4 * (size_t)cur);
+    const int skip = sm.x, meta = sm.y;
+    bool enter = bvh::box_hit(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t);
     if (PACKET) enter = __any_sync(FULL_MASK, enter);
-    if (enter && meta >= 0) bvh::leaf(r, tris, meta >> 4, meta & 15, h);
+    if (enter && meta >= 0) bvh::leaf(r, tris4, meta >> 4, meta & 15, h);
     cur = (enter && meta < 0) ? cur + 1 : skip;
   }
   if (valid) bvh::store(h, i, n, out, tri_out);

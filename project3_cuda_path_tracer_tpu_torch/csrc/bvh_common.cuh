@@ -8,6 +8,11 @@
 // moved near a Moller-Trumbore threshold (det 1e-12, t > 1e-6, bu+bv <= 1)
 // flips whether a lane hits. Written this way a lane takes the plain
 // version's decisions bit for bit, and so pops the same nodes.
+//
+// Rows are read as 16-byte vectors: a triangle row (24 floats, 96 B) is six
+// float4s, of which a test reads the first three (v0, e1, e2 and n0) and an
+// accepted hit the other three. The callers hand over 16-byte aligned
+// tables (the wrappers check it) that end in at least one zero pad row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +22,9 @@
 namespace bvh {
 
 constexpr int THREADS = 128;
-constexpr int TRI_ROW = 24;  // v0 e1 e2 n0 n1 n2 (3 each), uv0 uv1 uv2 (2)
+// v0 e1 e2 n0 n1 n2 (3 floats each), uv0 uv1 uv2 (2 each): 24 floats
+constexpr int TRI_ROW4 = 6;  // float4s per triangle row
+constexpr float BIG = 1e30f;  // an unbounded ray's t (ops/pallas_bvh.BIG)
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -37,26 +44,32 @@ struct Hit {
   int tri;
 };
 
-// Ray i of the planar [3, n] origin and direction blocks. 1/d is IEEE
-// division (nvcc's default -prec-div=true), as torch's 1/x: a zero
-// component gives +-inf.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ qo,
-                                        const float* __restrict__ qd,
-                                        int i, int n) {
+// A ray and its reciprocal direction. 1/d is IEEE division (nvcc's default
+// -prec-div=true), as torch's 1/x: a zero component gives +-inf.
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
   Ray r;
-  r.ox = qo[i];
-  r.oy = qo[n + i];
-  r.oz = qo[2 * n + i];
-  r.dx = qd[i];
-  r.dy = qd[n + i];
-  r.dz = qd[2 * n + i];
-  r.ix = 1.0f / r.dx;
-  r.iy = 1.0f / r.dy;
-  r.iz = 1.0f / r.dz;
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  r.ix = 1.0f / dx;
+  r.iy = 1.0f / dy;
+  r.iz = 1.0f / dz;
   return r;
 }
 
-// Does the ray enter the box before t_best?
+// Ray i of the planar [3, n] origin and direction blocks.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ qo,
+                                        const float* __restrict__ qd,
+                                        int i, int n) {
+  return make_ray(qo[i], qo[n + i], qo[2 * n + i], qd[i], qd[n + i],
+                  qd[2 * n + i]);
+}
+
+// Does the ray enter the box lo..hi before t_best?
 //
 // fminf/fmaxf return the other operand when one is NaN, while torch.minimum
 // and jnp.minimum return the NaN, after which every compare fails. A NaN
@@ -68,14 +81,15 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ qo,
 // `tmax > 0` into `tmax >= max(tmin, FLT_MIN)`, exact only under the TPU's
 // flush-to-zero; the H100 keeps subnormals. `t_best > 0` deadens lanes
 // whose bound is <= 0 (terminated paths, padding).
-__device__ __forceinline__ bool box_hit(const Ray& r, const float* b,
-                                        float t_best) {
-  const float t1x = mul(sub(b[0], r.ox), r.ix);
-  const float t1y = mul(sub(b[1], r.oy), r.iy);
-  const float t1z = mul(sub(b[2], r.oz), r.iz);
-  const float t2x = mul(sub(b[3], r.ox), r.ix);
-  const float t2y = mul(sub(b[4], r.oy), r.iy);
-  const float t2z = mul(sub(b[5], r.oz), r.iz);
+__device__ __forceinline__ bool box_hit(const Ray& r, float lox, float loy,
+                                        float loz, float hix, float hiy,
+                                        float hiz, float t_best) {
+  const float t1x = mul(sub(lox, r.ox), r.ix);
+  const float t1y = mul(sub(loy, r.oy), r.iy);
+  const float t1z = mul(sub(loz, r.oz), r.iz);
+  const float t2x = mul(sub(hix, r.ox), r.ix);
+  const float t2y = mul(sub(hiy, r.oy), r.iy);
+  const float t2z = mul(sub(hiz, r.oz), r.iz);
   if (isnan(t1x) || isnan(t1y) || isnan(t1z) || isnan(t2x) || isnan(t2y) ||
       isnan(t2z)) {
     return false;
@@ -87,48 +101,63 @@ __device__ __forceinline__ bool box_hit(const Ray& r, const float* b,
   return tmax >= tmin && tmax > 0.0f && tmin < t_best && t_best > 0.0f;
 }
 
-// Moller-Trumbore against triangles start..start+count-1, with the smooth
-// normal and uv interpolated for a hit. Strictly nearer wins, so on an
-// exact tie the first found stays.
+// Moller-Trumbore of one triangle, row `index` at `t`, given its first
+// three float4s (v0, e1, e2, n0); the smooth normal and uv are interpolated
+// for a hit. Strictly nearer wins, so on an exact tie the first found stays.
+__device__ __forceinline__ void tri_test(const Ray& r, float4 a, float4 b,
+                                         float4 c,
+                                         const float4* __restrict__ t,
+                                         int index, Hit& h) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float pvx = sub(mul(r.dy, e2z), mul(r.dz, e2y));
+  const float pvy = sub(mul(r.dz, e2x), mul(r.dx, e2z));
+  const float pvz = sub(mul(r.dx, e2y), mul(r.dy, e2x));
+  const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
+  const bool ok = fabsf(det) > 1e-12f;
+  const float inv_det = ok ? 1.0f / det : 0.0f;
+  const float tvx = sub(r.ox, v0x);
+  const float tvy = sub(r.oy, v0y);
+  const float tvz = sub(r.oz, v0z);
+  const float bu = mul(dot3(tvx, tvy, tvz, pvx, pvy, pvz), inv_det);
+  const float qvx = sub(mul(tvy, e1z), mul(tvz, e1y));
+  const float qvy = sub(mul(tvz, e1x), mul(tvx, e1z));
+  const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
+  const float bv = mul(dot3(r.dx, r.dy, r.dz, qvx, qvy, qvz), inv_det);
+  const float tk = mul(dot3(e2x, e2y, e2z, qvx, qvy, qvz), inv_det);
+  if (ok && bu >= 0.0f && bv >= 0.0f && add(bu, bv) <= 1.0f && tk > 1e-6f &&
+      tk < h.t) {
+    // n0 = c.yzw; n1 = d.xyz; n2 = d.w e.xy; uv0 = e.zw; uv1 = f.xy;
+    // uv2 = f.zw
+    const float4 d = __ldg(t + 3), e = __ldg(t + 4), f = __ldg(t + 5);
+    const float bw = sub(sub(1.0f, bu), bv);
+    h.t = tk;
+    h.nx = add(add(mul(bw, c.y), mul(bu, d.x)), mul(bv, d.w));
+    h.ny = add(add(mul(bw, c.z), mul(bu, d.y)), mul(bv, e.x));
+    h.nz = add(add(mul(bw, c.w), mul(bu, d.z)), mul(bv, e.y));
+    h.u = add(add(mul(bw, e.z), mul(bu, f.x)), mul(bv, f.z));
+    h.v = add(add(mul(bw, e.w), mul(bu, f.y)), mul(bv, f.w));
+    h.tri = index;
+  }
+}
+
+// Moller-Trumbore against triangles start..start+count-1, in order, with
+// row k+1's first three float4s loaded before row k's test, so that the
+// loads of a leaf's rows overlap (the tables end in zero pad rows, so row
+// start+count is always readable).
 __device__ __forceinline__ void leaf(const Ray& r,
-                                     const float* __restrict__ tris,
+                                     const float4* __restrict__ tris,
                                      int start, int count, Hit& h) {
-  for (int k = 0; k < count; ++k) {
-    const float* t = tris + (size_t)(start + k) * TRI_ROW;
-    const float v0x = __ldg(t + 0), v0y = __ldg(t + 1), v0z = __ldg(t + 2);
-    const float e1x = __ldg(t + 3), e1y = __ldg(t + 4), e1z = __ldg(t + 5);
-    const float e2x = __ldg(t + 6), e2y = __ldg(t + 7), e2z = __ldg(t + 8);
-    const float pvx = sub(mul(r.dy, e2z), mul(r.dz, e2y));
-    const float pvy = sub(mul(r.dz, e2x), mul(r.dx, e2z));
-    const float pvz = sub(mul(r.dx, e2y), mul(r.dy, e2x));
-    const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
-    const bool ok = fabsf(det) > 1e-12f;
-    const float inv_det = ok ? 1.0f / det : 0.0f;
-    const float tvx = sub(r.ox, v0x);
-    const float tvy = sub(r.oy, v0y);
-    const float tvz = sub(r.oz, v0z);
-    const float bu = mul(dot3(tvx, tvy, tvz, pvx, pvy, pvz), inv_det);
-    const float qvx = sub(mul(tvy, e1z), mul(tvz, e1y));
-    const float qvy = sub(mul(tvz, e1x), mul(tvx, e1z));
-    const float qvz = sub(mul(tvx, e1y), mul(tvy, e1x));
-    const float bv = mul(dot3(r.dx, r.dy, r.dz, qvx, qvy, qvz), inv_det);
-    const float tk = mul(dot3(e2x, e2y, e2z, qvx, qvy, qvz), inv_det);
-    if (ok && bu >= 0.0f && bv >= 0.0f && add(bu, bv) <= 1.0f &&
-        tk > 1e-6f && tk < h.t) {
-      const float bw = sub(sub(1.0f, bu), bv);
-      h.t = tk;
-      h.nx = add(add(mul(bw, __ldg(t + 9)), mul(bu, __ldg(t + 12))),
-                 mul(bv, __ldg(t + 15)));
-      h.ny = add(add(mul(bw, __ldg(t + 10)), mul(bu, __ldg(t + 13))),
-                 mul(bv, __ldg(t + 16)));
-      h.nz = add(add(mul(bw, __ldg(t + 11)), mul(bu, __ldg(t + 14))),
-                 mul(bv, __ldg(t + 17)));
-      h.u = add(add(mul(bw, __ldg(t + 18)), mul(bu, __ldg(t + 20))),
-                mul(bv, __ldg(t + 22)));
-      h.v = add(add(mul(bw, __ldg(t + 19)), mul(bu, __ldg(t + 21))),
-                mul(bv, __ldg(t + 23)));
-      h.tri = start + k;
-    }
+  const float4* t = tris + (size_t)start * TRI_ROW4;
+  float4 a = __ldg(t), b = __ldg(t + 1), c = __ldg(t + 2);
+  for (int k = 0; k < count; ++k, t += TRI_ROW4) {
+    const float4 na = __ldg(t + TRI_ROW4), nb = __ldg(t + TRI_ROW4 + 1),
+                 nc = __ldg(t + TRI_ROW4 + 2);
+    tri_test(r, a, b, c, t, start + k, h);
+    a = na;
+    b = nb;
+    c = nc;
   }
 }
 

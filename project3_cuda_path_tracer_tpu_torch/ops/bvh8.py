@@ -2,17 +2,34 @@
 
 Counterpart of project3_cuda_path_tracer_tpu/ops/bvh8.py. The Pallas kernel
 there (`_traverse8_kernel`) walks one shared stack per packet of 2,048 rays
-and slab-tests a node's 8 children across the packet. On the H100 the
-kernel is one thread per ray with its own stack of STACK int32 entries: pop
-an entry; a leaf runs Moller-Trumbore on its <= WIDE_LEAF_K rows with the
-normal and uv interpolated in the kernel; an interior node slab-tests its 8
-children and pushes every child the ray enters, far child first. The order
-follows the ray's own origin coordinate on the node's sort axis against the
-node's threshold: the per-ray counterpart of the packet's centroid vote.
+and slab-tests a node's 8 children across the packet. On the H100 each lane
+walks its own ray with its own stack: pop an entry; a leaf runs
+Moller-Trumbore on its <= WIDE_LEAF_K rows with the normal and uv
+interpolated in the kernel; an interior node slab-tests its 8 children and
+pushes every child the ray enters, far child first. The order follows the
+ray's own origin coordinate on the node's sort axis against the node's
+threshold: the per-ray counterpart of the packet's centroid vote. A ray's
+pops depend only on the ray, so every schedule gives the same outputs and
+pop counts, bit for bit.
+
+What bounds it: bytes, the rays (28 B in, 28 B out) and the tree rows they
+read; what keeps it from that is the dependent pop chain and rays of one
+warp that need from 1 to dozens of pops. So the kernel the renderer
+launches is persistent: a grid that fills the card (`_persistent_blocks`),
+warps that take 32-ray chunks from a counter and refill their finished
+lanes, a dead lane (t_bound <= 0 or NaN) answered without reading the
+tree, the first S stack entries in shared memory and the rest in a local
+array, node and triangle rows read as 16-byte vectors.
 
 `traverse8()` is the wrapper the integrator calls: CPU tensors take
 `traverse8_plain` (the same per-ray stack walk in torch ops), CUDA tensors
-launch the kernel. `LAUNCHES` counts kernel launches.
+launch the persistent kernel on the planes as they are (a plane is copied
+only if it is not contiguous), counted in LAUNCHES. Two more instances
+serve chip_smoke.py and tests/test_torch_cuda.py only (CUDA tensors only):
+`_traverse8_grid`, the first port's schedule, one thread per ray (the A/B
+and the bitwise check; counted in LAUNCHES_GRID), and `_traverse8_tiny`,
+the persistent one with a 2-entry shared stack, which exercises the local
+overflow (LAUNCHES_TINY).
 
 Layout, built on the host from the binned-SAH binary tree of scene/bvh.py
 (`pack_mesh8`, bit for bit as the JAX package packs it; the JAX `nodes`
@@ -39,9 +56,14 @@ import torch
 
 from ..scene import types as T
 from ..utils import cuda_build
+from ..utils.device import stream_counter
 from . import pallas_bvh as PB
 
-LAUNCHES = 0
+LAUNCHES = 0       # persistent launches (the renderer's schedule)
+LAUNCHES_GRID = 0  # grid-schedule launches (the A/B only)
+LAUNCHES_TINY = 0  # tiny-stack launches (the overflow check only)
+# The kernel's instances, as csrc/bvh8.cu numbers them.
+INSTANCES = {"persistent": 0, "grid": 1, "tiny": 2}
 
 WIDTH = 8          # children per node
 STACK = 128        # per-ray stack entries; pack_mesh8 asserts the bound
@@ -245,14 +267,140 @@ def traverse8_plain(qo, qd, packed: PackedMesh8,
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bvh8")
-    fn = lib.bvh8_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    persistent = ([ptr] * 7 + [i32] + [ptr] * 2 + [i32] + [ptr] * 3 + [i32]
+                  + [ptr] * 3)
+    lib.bvh8_traverse.argtypes = persistent
+    lib.bvh8_traverse_tiny.argtypes = persistent
+    lib.bvh8_traverse_grid.argtypes = ([ptr] * 7 + [i32] + [ptr] * 2 + [i32]
+                                       + [ptr] * 5)
+    lib.bvh8_attributes.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
+    for fn in (lib.bvh8_traverse, lib.bvh8_traverse_tiny,
+               lib.bvh8_traverse_grid, lib.bvh8_attributes):
+        fn.restype = ctypes.c_int
     lib.bvh_error_string.restype = ctypes.c_char_p
     lib.bvh_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _attributes(instance: str, any_hit: bool) -> tuple:
+    """(registers, local bytes, max threads per block, resident blocks per
+    SM, static shared bytes) of one instance on the current device."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    PB.raise_on(lib.bvh8_attributes(INSTANCES[instance], int(any_hit), out),
+                lib, "bvh8 attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_blocks(device_index: int, instance: str,
+                       any_hit: bool) -> int:
+    """The persistent grid that fills the card: SMs x the instance's
+    resident blocks, worked out once per device and instance."""
+    with torch.cuda.device(device_index):
+        per_sm = _attributes(instance, any_hit)[3]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
+def kernel_attributes(device) -> list:
+    """Registers, local memory bytes (the stack's overflow array and any
+    spills), max threads per block, resident blocks per SM and static
+    shared bytes of every kernel instance, as the CUDA runtime reports them
+    for `device`."""
+    recs = []
+    with torch.cuda.device(device):
+        for instance in INSTANCES:
+            for any_hit in (False, True):
+                out = _attributes(instance, any_hit)
+                recs.append(dict(instance=instance, any_hit=any_hit,
+                                 registers=out[0], local_bytes=out[1],
+                                 max_threads_per_block=out[2],
+                                 blocks_per_sm=out[3],
+                                 static_smem_bytes=out[4]))
+    return recs
+
+
+def _launch(instance: str, qo, qd, packed: PackedMesh8,
+            t_bound: Optional[torch.Tensor] = None, any_hit: bool = False,
+            return_pops: bool = False,
+            stats: Optional[torch.Tensor] = None):
+    """Check the inputs and launch one instance of K2 on the current stream
+    (CUDA tensors only); count it. `stats`, an int64 [3] tensor on the
+    card, gets the busy and total lane slots of the pop steps added and the
+    deepest stack maxed in."""
+    global LAUNCHES, LAUNCHES_GRID, LAUNCHES_TINY
+    if instance not in INSTANCES:
+        raise ValueError(f"instance must be one of {tuple(INSTANCES)}")
+    dev = PB.check_rays(qo, qd, t_bound)
+    PB.check_table("nodes", packed.nodes, ROW, F32, dev)
+    PB.check_table("tris", packed.tris, PB.TRI_ROW, F32, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    PB.check_aligned(packed.nodes, packed.tris)
+    if stats is not None and (stats.dtype != torch.int64
+                              or tuple(stats.shape) != (3,)
+                              or stats.device != dev
+                              or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous int64 [3] tensor on "
+                         "the rays' device")
+    n = qo[0].shape[0]
+    if n >= 1 << 30:
+        raise ValueError(f"{n} rays: the kernel's ray counter takes < 2^30")
+    planes = [c.contiguous() for c in (*qo, *qd)]
+    tb = None if t_bound is None else t_bound.contiguous()
+    out = torch.empty((6, n), dtype=F32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    pops = (torch.empty((n,), dtype=torch.int32, device=dev) if return_pops
+            else None)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = ([c.data_ptr() for c in planes]
+                + [tb.data_ptr() if tb is not None else None, n,
+                   packed.nodes.data_ptr(), packed.tris.data_ptr(),
+                   int(any_hit), out.data_ptr(), tri.data_ptr(),
+                   pops.data_ptr() if pops is not None else None])
+        st = stats.data_ptr() if stats is not None else None
+        if instance == "grid":
+            rc = lib.bvh8_traverse_grid(*args, st, stream)
+        else:
+            fn = (lib.bvh8_traverse if instance == "persistent"
+                  else lib.bvh8_traverse_tiny)
+            blocks = _persistent_blocks(dev.index, instance, any_hit)
+            counter = stream_counter(dev, stream)
+            rc = fn(*args, blocks, counter.data_ptr(), st, stream)
+    PB.raise_on(rc, lib, "bvh8")
+    if instance == "persistent":
+        LAUNCHES += 1
+    elif instance == "grid":
+        LAUNCHES_GRID += 1
+    else:
+        LAUNCHES_TINY += 1
+    res = PB.unpack_out(out, tri)
+    return res + (pops,) if return_pops else res
+
+
+def _traverse8_grid(qo, qd, packed: PackedMesh8,
+                    t_bound: Optional[torch.Tensor] = None,
+                    any_hit: bool = False, return_pops: bool = False,
+                    stats: Optional[torch.Tensor] = None):
+    """`traverse8` in the first port's schedule, one thread per ray (CUDA
+    tensors only): the A/B and the bitwise check of the two schedules."""
+    return _launch("grid", qo, qd, packed, t_bound, any_hit, return_pops,
+                   stats)
+
+
+def _traverse8_tiny(qo, qd, packed: PackedMesh8,
+                    t_bound: Optional[torch.Tensor] = None,
+                    any_hit: bool = False, return_pops: bool = False,
+                    stats: Optional[torch.Tensor] = None):
+    """`traverse8` in the persistent schedule with a 2-entry shared stack,
+    so that deeper entries take the local overflow (CUDA tensors only): the
+    bitwise check of the overflow path."""
+    return _launch("tiny", qo, qd, packed, t_bound, any_hit, return_pops,
+                   stats)
 
 
 def traverse8(qo, qd, packed: PackedMesh8,
@@ -261,35 +409,21 @@ def traverse8(qo, qd, packed: PackedMesh8,
     """Nearest hit over the 8-wide packed mesh (the JAX `traverse_packets8`
     with its defaults): (t_obj, (nx, ny, nz), u, v, tri) with tri -1 for a
     miss; a miss keeps t = t_bound with zero normal and uv, and a lane with
-    t_bound <= 0 is dead. `return_pops` appends the per-ray pop count [N]
-    int32 (the JAX kernel counts pops per packet).
+    t_bound <= 0 (or NaN) is dead. `return_pops` appends the per-ray pop
+    count [N] int32 (the JAX kernel counts pops per packet).
 
     `any_hit` is the occlusion mode: a ray stops after the first leaf in
     which it accepts a triangle, and reports that leaf's nearest hit. It
     reports a hit exactly where the nearest-hit mode does.
 
-    CPU tensors take `traverse8_plain`; CUDA tensors launch the kernel on
-    the current stream (no synchronisation) and count it in LAUNCHES."""
-    global LAUNCHES
+    CPU tensors take `traverse8_plain`; CUDA tensors launch the kernel's
+    persistent schedule on the current stream (no synchronisation) and
+    count it in LAUNCHES."""
     dev = PB.check_rays(qo, qd, t_bound)
-    PB.check_table("nodes", packed.nodes, ROW, F32, dev)
-    PB.check_table("tris", packed.tris, PB.TRI_ROW, F32, dev)
     if dev.type == "cpu":
+        PB.check_table("nodes", packed.nodes, ROW, F32, dev)
+        PB.check_table("tris", packed.tris, PB.TRI_ROW, F32, dev)
         res = traverse8_plain(qo, qd, packed, t_bound, any_hit)
         return res if return_pops else res[:-1]
-    n = qo[0].shape[0]
-    o, d, tb, out, tri = PB.launch_args(qo, qd, t_bound, n, dev)
-    pops = (torch.empty((n,), dtype=torch.int32, device=dev) if return_pops
-            else None)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        rc = lib.bvh8_traverse(
-            o.data_ptr(), d.data_ptr(), tb.data_ptr(), n,
-            packed.nodes.data_ptr(), packed.tris.data_ptr(), int(any_hit),
-            out.data_ptr(), tri.data_ptr(),
-            pops.data_ptr() if pops is not None else None,
-            torch.cuda.current_stream().cuda_stream)
-    PB.raise_on(rc, lib, "bvh8")
-    LAUNCHES += 1
-    res = PB.unpack_out(out, tri)
-    return res + (pops,) if return_pops else res
+    return _launch("persistent", qo, qd, packed, t_bound, any_hit,
+                   return_pops)

@@ -38,6 +38,7 @@ import torch
 
 from ..scene import types as T
 from ..utils import cuda_build
+from ..utils.device import stream_counter
 
 LAUNCHES = 0       # K1 launches, both schedules
 LAUNCHES_GRID = 0  # of which the grid schedule
@@ -272,18 +273,6 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-_COUNTERS = {}  # (device index, stream) -> the persistent schedule's counter
-
-
-def _counter(device: torch.device, stream: int) -> torch.Tensor:
-    """4 bytes of scratch for the pixel counter, one per device and stream
-    (the C entry point zeroes it on the stream before each launch)."""
-    key = (device.index, stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.empty((1,), dtype=torch.int32, device=device)
-    return _COUNTERS[key]
-
-
 def _raise_on(rc: int, lib, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"megakernel {what} failed: "
@@ -345,9 +334,9 @@ def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
             blocks = _persistent_blocks(
                 accum.device.index, SAMPLERS[sampler], int(cfg.motion),
                 4 * scene_table.numel())
-            rc = lib.megakernel_iteration(
-                *args, blocks, _counter(accum.device, stream).data_ptr(), st,
-                stream)
+            counter = stream_counter(accum.device, stream)
+            rc = lib.megakernel_iteration(*args, blocks, counter.data_ptr(),
+                                          st, stream)
         else:
             rc = lib.megakernel_iteration_grid(*args, st, stream)
     _raise_on(rc, lib, "launch")

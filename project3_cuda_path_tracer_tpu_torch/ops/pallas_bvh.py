@@ -277,6 +277,14 @@ def check_table(name: str, t: torch.Tensor, cols: int, dtype, dev) -> None:
         raise ValueError(f"{name} must be contiguous on {dev}")
 
 
+def check_aligned(*tables: torch.Tensor) -> None:
+    """The kernels read table rows as 16-byte vectors."""
+    for t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels read rows as 16-byte vectors: "
+                             "tables must be 16-byte aligned")
+
+
 def launch_args(qo, qd, t_bound, n: int, dev):
     """Stacked [3,N] rays, the bound and a [6,N] output block on `dev`."""
     o = torch.stack(list(qo)).contiguous()
@@ -333,6 +341,7 @@ def traverse(qo, qd, packed: PackedMesh,
     check_table("tris", packed.tris, TRI_ROW, F32, dev)
     if dev.type == "cpu":
         return traverse_binary_plain(qo, qd, packed, t_bound)
+    check_aligned(packed.nodes_f, packed.nodes_i, packed.tris)
     n = qo[0].shape[0]
     o, d, tb, out, tri = launch_args(qo, qd, t_bound, n, dev)
     lib = _kernel_lib()

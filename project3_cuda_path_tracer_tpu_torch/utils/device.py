@@ -18,6 +18,20 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+_COUNTERS = {}  # (device index, stream) -> a persistent kernel's counter
+
+
+def stream_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """4 bytes of scratch for a persistent kernel's work counter, one per
+    device and stream (K1 and K2 share it: their C entry points zero it on
+    the stream before each launch, and a stream runs one launch at a
+    time)."""
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.empty((1,), dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for queued work on `device` (a no-op on the CPU)."""
     if device.type == "cuda":

@@ -253,6 +253,26 @@ def test_dead_lanes_miss(kind, torus):
         assert (pops[1::2][tri[1::2] >= 0] > 1).all()
 
 
+@pytest.mark.parametrize("dead", [-1.0, 0.0, float("nan")])
+def test_plain_dead_lane_record(dead, torus):
+    """A dead lane (t_bound <= 0 or NaN) gets exactly the miss record: t =
+    t_bound (bit for bit), zero normal and uv, tri -1, one pop. The kernel
+    writes that record without reading the tree."""
+    packed = _packed("bvh8", torus[1])
+    o, d = (_torch(a) for a in _aimed_rays(256, seed=8))
+    bound = torch.full((256,), 1e30)
+    bound[::3] = dead
+    t, nrm, u, v, tri, pops = P8.traverse8_plain(o, d, packed, bound)
+    for any_hit in (False, True):
+        occl = P8.traverse8_plain(o, d, packed, bound, any_hit=any_hit)
+        assert torch.equal(occl[5][::3], torch.ones(86, dtype=torch.int32))
+    np.testing.assert_array_equal(t[::3].numpy().view(np.int32),
+                                  bound[::3].numpy().view(np.int32))
+    assert all((c[::3] == 0).all() for c in list(nrm) + [u, v])
+    assert (tri[::3] == -1).all() and (pops[::3] == 1).all()
+    assert (tri[1::3] >= 0).sum() > 40
+
+
 def test_any_hit_matches_nearest_hit_mask(blob):
     """Occlusion mode reports a hit exactly where nearest-hit does, and
     where the JAX kernel's any_hit mode does; it pops no more nodes."""
@@ -304,3 +324,40 @@ def test_wrapper_rejects_bad_inputs(kind, bad, torus):
     fn = P8.traverse8 if kind == "bvh8" else PPB.traverse
     with pytest.raises((TypeError, ValueError)):
         fn(o, d, packed, t_bound=tb)
+
+
+def test_grid_schedule_refuses_cpu_tensors(torus):
+    """K2's grid and tiny-stack instances are the card's checks only: CPU
+    tensors raise (they never fall back to the plain version), and so does
+    the persistent entry `_launch`."""
+    packed = _packed("bvh8", torus[1])
+    o, d = (_torch(a) for a in _aimed_rays(64))
+    before = (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY)
+    with pytest.raises(ValueError, match="CUDA"):
+        P8._traverse8_grid(o, d, packed)
+    with pytest.raises(ValueError, match="CUDA"):
+        P8._traverse8_tiny(o, d, packed)
+    with pytest.raises(ValueError, match="CUDA"):
+        P8._launch("persistent", o, d, packed)
+    assert (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY) == before
+
+
+def test_traverse8_cpu_takes_noncontiguous_planes(torus):
+    """traverse8 on CPU tensors equals traverse8_plain when the planes are
+    strided views (columns of [N, 3] blocks), bound included."""
+    packed = _packed("bvh8", torus[1])
+    o, d = _aimed_rays(512, seed=9)
+    ob = torch.from_numpy(np.ascontiguousarray(o.T))
+    db = torch.from_numpy(np.ascontiguousarray(d.T))
+    qo, qd = tuple(ob[:, k] for k in range(3)), tuple(db[:, k]
+                                                     for k in range(3))
+    assert not qo[0].is_contiguous()
+    tb = torch.full((1024,), 1e30)[::2]
+    tb[::4] = -1.0
+    got = P8.traverse8(qo, qd, packed, t_bound=tb, return_pops=True)
+    want = P8.traverse8_plain(_torch(o), _torch(d), packed,
+                              tb.contiguous())
+    for g, w in zip(got[:1] + got[1] + got[2:], want[:1] + want[1]
+                    + want[2:]):
+        assert torch.equal(g, w)
+    assert (got[4] >= 0).sum() > 150

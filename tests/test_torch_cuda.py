@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1 (csrc/megakernel.cu) in both schedules, K2-K4 (csrc/bvh8.cu,
-csrc/bvh_binary.cu) and the probes P1/P2 (csrc/gather.cu,
+K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K3/K4
+(csrc/bvh_binary.cu) and the probes P1/P2 (csrc/gather.cu,
 csrc/extract_cost.cu). Every test here is `cuda`-marked and skips without a
 card. The file imports neither JAX nor the JAX package, so it runs where
 they are absent:
@@ -154,6 +154,88 @@ def test_kernels_match_plain_on_card():
         k = PPB.traverse(o, d, pb, sub_packets=sub)
         torch.cuda.synchronize()
         assert (k[4] == plain[4]).float().mean() >= 0.99
+
+
+def _k2_inputs(dev):
+    """The torus packed 8-wide on `dev`, and 4,096 aimed rays of which some
+    start inside its box and some are dead (t_bound -1, 0 and NaN)."""
+    torus = PB.build_mesh_bundle([TORUS])
+    p8 = P8.PackedMesh8(*(t.to(dev) for t in P8.pack_mesh8(torus)))
+    o, d = _aimed_rays(4096, 7, dev)
+    o = tuple(torch.where(torch.arange(4096, device=dev) % 5 == 0, 0.3 * c,
+                          c) for c in o)
+    tb = torch.full((4096,), 1e30, device=dev)
+    tb[::7], tb[3::11], tb[5::13] = -1.0, 0.0, float("nan")
+    return p8, o, d, tb
+
+
+def _same_bits(a, b):
+    fa = torch.stack([a[0], *a[1], a[2], a[3]]).view(torch.int32)
+    fb = torch.stack([b[0], *b[1], b[2], b[3]]).view(torch.int32)
+    return (torch.equal(fa, fb) and torch.equal(a[4], b[4])
+            and torch.equal(a[5], b[5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k2_schedules_equal_bitwise_on_card(any_hit):
+    """K2's persistent instance (traverse8, the renderer's) and its grid
+    instance (the first port's one thread per ray) give t, normal, uv, tri
+    and pops bit for bit on the torus, dead lanes included, and each is
+    counted in its own LAUNCHES; they match the plain version."""
+    _need_card()
+    dev = torch.device("cuda")
+    p8, o, d, tb = _k2_inputs(dev)
+    before = (P8.LAUNCHES, P8.LAUNCHES_GRID)
+    pers = P8.traverse8(o, d, p8, t_bound=tb, any_hit=any_hit,
+                        return_pops=True)
+    grid = P8._traverse8_grid(o, d, p8, t_bound=tb, any_hit=any_hit,
+                              return_pops=True)
+    want = P8.traverse8_plain(o, d, p8, t_bound=tb, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert (P8.LAUNCHES, P8.LAUNCHES_GRID) == (before[0] + 1, before[1] + 1)
+    assert _same_bits(pers, grid)
+    assert int((pers[4] >= 0).sum()) > 1000
+    assert (pers[4] == want[4]).float().mean() >= 0.99
+    assert (pers[5] == want[5]).float().mean() >= 0.99
+    dead = ~(tb > 0)
+    assert (pers[4][dead] == -1).all() and (pers[5][dead] == 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k2_small_stack_equal_bitwise_on_card(any_hit):
+    """The instance with a 2-entry shared stack, whose deeper entries
+    overflow to local memory, equals the default instance bit for bit."""
+    _need_card()
+    dev = torch.device("cuda")
+    p8, o, d, tb = _k2_inputs(dev)
+    stats = torch.zeros((3,), dtype=torch.int64, device=dev)
+    before = (P8.LAUNCHES, P8.LAUNCHES_TINY)
+    tiny = P8._traverse8_tiny(o, d, p8, tb, any_hit, True, stats=stats)
+    main = P8.traverse8(o, d, p8, t_bound=tb, any_hit=any_hit,
+                        return_pops=True)
+    torch.cuda.synchronize()
+    assert (P8.LAUNCHES, P8.LAUNCHES_TINY) == (before[0] + 1, before[1] + 1)
+    assert int(stats[2]) > 2  # the stack did overflow
+    assert 0 < int(stats[0]) <= int(stats[1])
+    assert _same_bits(tiny, main)
+
+
+@pytest.mark.cuda
+def test_k2_grid_runs_on_card():
+    """`_traverse8_grid` runs on the card without the aimed-ray bound and
+    matches the plain version."""
+    _need_card()
+    dev = torch.device("cuda")
+    p8, o, d, _ = _k2_inputs(dev)
+    got = P8._traverse8_grid(o, d, p8, return_pops=True)
+    want = P8.traverse8_plain(o, d, p8)
+    torch.cuda.synchronize()
+    assert (got[4] == want[4]).float().mean() >= 0.99
+    assert (got[5] == want[5]).float().mean() >= 0.99
+    hit = (got[4] == want[4]) & (got[4] >= 0)
+    assert torch.allclose(got[0][hit], want[0][hit], atol=1e-4)
 
 
 @pytest.mark.cuda
