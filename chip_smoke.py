@@ -14,13 +14,17 @@ once) and drives these paths:
     registers and spills, and its shared-memory loads in the SASS;
   - scenes/mesh.txt, 1024x1024, depth 8, the 81,920-triangle blob, through
     `Renderer` and the CLI: the wavefront route, whose BVH traversals are
-    K2 (8-wide tree) or, with the binary packing, K3 and K4; each is held
-    against its plain version on aimed rays, the primary rays and one
-    diffuse bounce of the blob; K2's two schedules (persistent warps
+    K2 (8-wide tree) or, with the binary packing (`pack_all`), K3 and K4;
+    each is held against its plain version on aimed rays, the primary rays
+    and one diffuse bounce of the blob; K2's two schedules (persistent warps
     refilling finished lanes, the renderer's; one thread per ray, `grid`)
     and its tiny-stack instance held equal bit for bit, and the schedules
     timed in turns with each one's busy lane share, deepest stack,
-    registers, spills and global loads in the SASS;
+    registers, spills and global loads in the SASS; K3's two schedules
+    (one thread per ray, `grid`, the route's; persistent warps refilling
+    finished lanes) and K4 (warp packets of live rays) held equal to the
+    plain version bit for bit, step counts included, and timed in turns on
+    both wavefronts and on each bounce of one `pack_all` iteration;
   - the train step (models/inverse.py): gradients on the card against the
     CPU's at 64x64 depth 8; the history step on cornell 800x800 depth 8,
     timed, with its peak memory; InverseRenderer fitting an albedo back;
@@ -550,11 +554,18 @@ def k1_timing(gpu: str, table: torch.Tensor, cfg) -> dict:
 
 
 def same_bits(a, b) -> bool:
-    """Two K2 results (t, normal, u, v, tri, pops) equal bit for bit."""
+    """Two traversal results (t, normal, u, v, tri, and K2's pops or K3's
+    and K4's steps) equal bit for bit."""
     fa = torch.stack([a[0], *a[1], a[2], a[3]]).view(torch.int32)
     fb = torch.stack([b[0], *b[1], b[2], b[3]]).view(torch.int32)
     return (torch.equal(fa, fb) and torch.equal(a[4], b[4])
             and torch.equal(a[5], b[5]))
+
+
+# (name, instance) of every K3/K4 instance that the checks and the A/B
+# run, the route's (K3 grid) first.
+K34_INSTANCES = [("K3 grid", "grid"), ("K3 persistent", "persistent"),
+                 ("K4", "packet")]
 
 
 def lane_utilisation(pops: torch.Tensor) -> float:
@@ -634,28 +645,40 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                                     pops=int(pers[5].sum()))))
                 if not equal:
                     raise AssertionError(f"{check}: results differ")
+        # K3 (both schedules) and K4 against the plain version, bit for
+        # bit, step counts included.
         plain_b = PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
-        binary = {}
-        for name, sub in (("K3", False), ("K4", True)):
-            binary[name] = PB.traverse(qo, qd, pb, t_bound=tb,
-                                       sub_packets=sub)
-            torch.cuda.synchronize()
-            rec = traversal_check(f"{name} {tag}", binary[name], plain_b)
-            errs[name] = max(errs[name], rec["max_abs_err"])
-        agree = float((binary["K3"][4] == k[4]).float().mean())
+        binary = {name: PB._launch(inst, qo, qd, pb, tb, True)
+                  for name, inst in K34_INSTANCES}
+        torch.cuda.synchronize()
+        for name, res in binary.items():
+            equal = same_bits(res, plain_b)
+            err = float((torch.stack([res[0], *res[1], res[2], res[3]])
+                         - torch.stack([plain_b[0], *plain_b[1], plain_b[2],
+                                        plain_b[3]])).abs().nan_to_num()
+                        .max())
+            kid = name[:2]
+            errs[kid] = max(errs[kid], err)
+            log(json.dumps(dict(check=f"{name} vs plain {tag}",
+                                bitwise=equal, max_abs_err=err,
+                                hits=int((res[4] >= 0).sum()),
+                                steps=int(res[5].sum()))))
+            if not equal:
+                raise AssertionError(f"{name} {tag}: differs from plain")
+        agree = float((binary["K3 grid"][4] == k[4]).float().mean())
         log(json.dumps(dict(check=f"K2 tri vs K3 tri {tag}", agree=agree)))
         if agree < 1 - FRAC:
             raise AssertionError(f"K2 and K3 disagree on {tag}: {agree}")
 
     # ---- 8b. the mesh path: Renderer on mesh.txt ---------------------------
     mk.LAUNCHES = P8.LAUNCHES = P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_SUB = 0
+    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
     r = Renderer(scene, device="cuda")
     r.step_many(8)
     torch.cuda.synchronize()
     k2_launches = P8.LAUNCHES
-    others = (mk.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PB.LAUNCHES,
-              PB.LAUNCHES_SUB)
+    others = (mk.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY,
+              PB.LAUNCHES + PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB)
     if r.route != "wavefront" or k2_launches != 8 * 8 or any(others):
         raise AssertionError(f"mesh path: route {r.route}, K2 launched "
                              f"{k2_launches} times persistent (want 64), "
@@ -675,15 +698,24 @@ def mesh_phases(outdir: str, gpu: str) -> list:
 
     # The same path on the binary tree (pack_all): K3, two iterations, held
     # against the 8-wide tree's image on the same draws.
-    PB.LAUNCHES = 0
+    P8.LAUNCHES = P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
+    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
     rb = Renderer(dataclasses.replace(
         scene, packed_meshes=PB.pack_all(scene.meshes)), device="cuda")
     rb.step_many(2)
     torch.cuda.synchronize()
     k3_launches = PB.LAUNCHES
-    if k3_launches != 2 * 8:
-        raise AssertionError(f"binary mesh path launched K3 {k3_launches} "
-                             "times for 2 iterations (want 16)")
+    others = (PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB, P8.LAUNCHES,
+              P8.LAUNCHES_GRID, P8.LAUNCHES_TINY)
+    log(json.dumps(dict(phase="mesh binary path", iterations=rb.iteration,
+                        k3_route_instance="grid", k3_launches=k3_launches,
+                        k3_persistent_launches=others[0],
+                        k4_launches=others[1], k2_launches=others[2])))
+    if k3_launches != 2 * 8 or any(others):
+        raise AssertionError(f"binary mesh path launched K3's route "
+                             f"instance {k3_launches} times for 2 "
+                             "iterations (want 16); K3 persistent / K4 / K2 "
+                             f"/ K2 grid / K2 tiny {others} (want none)")
     rw = Renderer(scene, device="cuda")
     rw.step_many(2)
     compare_lanes("mesh binary tree vs 8-wide 1024x1024 d8 2spp", rb.accum,
@@ -737,8 +769,9 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                         **device_share(r, "traverse8_kernel"))))
     bounds = traversal_bounds(gpu, p8, pb, waves)
     k2 = k2_timing(gpu, p8, waves, util, mean_pops, bounds)
-    k2_bounces(gpu, p8, mesh_bounces(r))
-    k34 = binary_timing(gpu, pb, waves)
+    k2_bounces(gpu, p8, mesh_bounces(r, P8, "traverse8"))
+    k34 = binary_timing(gpu, pb, waves, bounds)
+    k3_bounces(gpu, pb, mesh_bounces(rb, PB, "traverse"))
     src = f"{PKG}/csrc"
     jax_ops = "project3_cuda_path_tracer_tpu/ops"
     entries = [dict(name="bvh8 traversal (K2)", route="cuda",
@@ -751,21 +784,25 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                     bound_by=bounds[("K2", "bounce-0")]["bound_by"],
                     library_ms=None, grid_ms=k2[("grid", "bounce-0")][0],
                     unheld_ms=k2[("persistent", "bounce-0")][1])]
-    for name, replaces, launches in (
-            ("binary traversal (K3)", "pallas_bvh.py:128", k3_launches),
+    for name, replaces, launches, inst in (
+            ("binary traversal (K3)", "pallas_bvh.py:128", k3_launches,
+             "K3 grid"),
             ("binary traversal, warp packets (K4)", "pallas_bvh.py:343",
-             k4_launches)):
+             k4_launches, "K4")):
         kid = name[-3:-1]
-        b = bounds[("K3", "bounce-0")]
+        b0, b1 = bounds[(kid, "bounce-0")], bounds[(kid, "bounce-1")]
         entries.append(dict(name=name, route="cuda",
                             source=f"{src}/bvh_binary.cu",
                             replaces=f"{jax_ops}/{replaces}",
                             launches=launches, max_abs_err=errs[kid],
-                            ms=k34[(kid, "bounce-0")][0],
+                            ms=k34[(inst, "bounce-0")][0],
                             plain_ms=k34[("plain", "bounce-0")],
-                            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                            bound_ms=b0["bound_ms"], bound_by=b0["bound_by"],
                             library_ms=None,
-                            unheld_ms=k34[(kid, "bounce-0")][1]))
+                            unheld_ms=k34[(inst, "bounce-0")][1],
+                            bounce1_ms=k34[(inst, "bounce-1")][0],
+                            bounce1_bound_ms=b1["bound_ms"]))
+    entries[1]["persistent_ms"] = k34[("K3 persistent", "bounce-0")][0]
     return entries
 
 
@@ -775,16 +812,17 @@ def traversal_bounds(gpu: str, p8, pb, waves: dict) -> dict:
     normal, uv, tri); each dead lane's (!(t_bound > 0)) bound in and 7
     words out, which is all its miss record needs; and what the live rays
     read of the tree, once (the rows the plain traversals read), with the
-    slab and triangle tests they make. K2 on both wavefronts, K3 on bounce
-    0 (K4's warps enter every node one of their rays enters, so it reads
-    at least what K3 reads)."""
+    slab and triangle tests they make. K2 and K3 on both wavefronts; K4's
+    is K3's, since each of its lanes visits and tests exactly what its K3
+    walk does."""
     from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
     from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
     out = {}
     for kid, tag, node_bytes, box_tests in (
             ("K2", "bounce-0", NODE8_BYTES, 8),
             ("K2", "bounce-1", NODE8_BYTES, 8),
-            ("K3", "bounce-0", NODE2_BYTES, 1)):
+            ("K3", "bounce-0", NODE2_BYTES, 1),
+            ("K3", "bounce-1", NODE2_BYTES, 1)):
         qo, qd, tb = waves[tag]
         n = int(qo[0].shape[0])
         live = tb > 0
@@ -806,6 +844,11 @@ def traversal_bounds(gpu: str, p8, pb, waves: dict) -> dict:
             + rd["tri_tests"] * TRI_OPS), **rd)
         log(json.dumps(dict(metric=f"{kid}_bound", wavefront=tag, rays=n,
                             dead_lanes=n_dead, **out[(kid, tag)], gpu=gpu)))
+        if kid == "K3":
+            out[("K4", tag)] = out[(kid, tag)]
+            log(json.dumps(dict(metric="K4_bound", wavefront=tag, rays=n,
+                                dead_lanes=n_dead, same_as="K3_bound",
+                                **out[(kid, tag)], gpu=gpu)))
     return out
 
 
@@ -904,27 +947,27 @@ def k2_timing(gpu: str, p8, waves: dict, util: dict, mean_pops: dict,
     return out
 
 
-def mesh_bounces(r) -> list:
-    """The inputs (qo, qd, t_bound) of every K2 launch that one iteration of
-    the mesh renderer `r` makes, one a bounce, copied as the renderer
-    passed them to `traverse8`."""
-    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    kernel, waves = P8.traverse8, []
+def mesh_bounces(r, module, wrapper: str) -> list:
+    """The inputs (qo, qd, t_bound) of every traversal launch that one
+    iteration of the mesh renderer `r` makes, one a bounce, copied as the
+    renderer passed them to `module.<wrapper>` (bvh8.traverse8 for K2,
+    pallas_bvh.traverse for K3)."""
+    kernel, waves = getattr(module, wrapper), []
 
     def capture(qo, qd, packed, t_bound=None, **kwargs):
         waves.append((tuple(c.clone() for c in qo),
                       tuple(c.clone() for c in qd), t_bound.clone()))
         return kernel(qo, qd, packed, t_bound=t_bound, **kwargs)
 
-    P8.traverse8 = capture
+    setattr(module, wrapper, capture)
     try:
         r.step()
     finally:
-        P8.traverse8 = kernel
+        setattr(module, wrapper, kernel)
     torch.cuda.synchronize()
     if len(waves) != r.cfg.trace_depth:
-        raise AssertionError(f"one mesh iteration made {len(waves)} K2 "
-                             f"launches (want {r.cfg.trace_depth})")
+        raise AssertionError(f"one mesh iteration made {len(waves)} "
+                             f"{wrapper} launches (want {r.cfg.trace_depth})")
     return waves
 
 
@@ -975,42 +1018,155 @@ def k2_bounces(gpu: str, p8, bounces: list) -> None:
                                "K2 launches, each held", gpu=gpu)))
 
 
-def binary_timing(gpu: str, pb, waves: dict) -> dict:
-    """Phase 8d for K3 and K4 on each wavefront: plain, K3, K4, K4, K3,
-    plain, each kernel's turn timed held and with its host side. Returns
-    {(kernel, wavefront): (held ms, unheld ms)} and {("plain", wavefront):
-    ms}."""
+# A K3/K4 instance's mangled name: binary_kernel<SCHED> (SCHED 0
+# persistent, 1 grid, 2 packet).
+K34_MANGLED = re.compile(r"binary_kernelILi(\d)E")
+
+
+def k34_instance(m: re.Match) -> str:
+    """The instance of a K34_MANGLED match, as `pallas_bvh.INSTANCES`
+    names it."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    return {v: k for k, v in PB.INSTANCES.items()}[int(m.group(1))]
+
+
+def k34_lanes(pb, qo, qd, tb) -> dict:
+    """name -> (busy, total) lane slots of the steps of one counted launch
+    of every instance of K34_INSTANCES on these rays."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    dev = torch.device("cuda")
+    lanes = {}
+    for name, inst in K34_INSTANCES:
+        st = torch.zeros((2,), dtype=torch.int64, device=dev)
+        PB._launch(inst, qo, qd, pb, tb, stats=st)
+        torch.cuda.synchronize()
+        lanes[name] = [int(v) for v in st.cpu()]
+    return lanes
+
+
+def k34_held(pb, qo, qd, tb, iters: int = 20) -> dict:
+    """name -> held ms of each instance of K34_INSTANCES on these rays,
+    timed in turns (each instance twice, in order then reversed)."""
     from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
         time_ms as device_ms
+    held = {name: [] for name, _ in K34_INSTANCES}
+    for name, inst in K34_INSTANCES + K34_INSTANCES[::-1]:
+        held[name].append(device_ms(
+            lambda: PB._launch(inst, qo, qd, pb, tb), iters, warm=3))
+    return held
+
+
+def binary_timing(gpu: str, pb, waves: dict, bounds: dict) -> dict:
+    """Phase 8d for K3 and K4 on each wavefront: every instance's busy lane
+    share (one counted launch each), then plain, the instances in turns
+    (each timed held, and once more with its host side), plain; every
+    instance's registers, spills and local memory; the floors (every ray
+    dead, every ray one step). Returns {(instance name, wavefront): (held
+    ms, unheld ms)} and {("plain", wavefront): ms}."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    dev = torch.device("cuda")
+    lib = cuda_build.library_path("bvh_binary")
+    spills = ptxas_report(lib + ".log", K34_MANGLED, k34_instance)
+    instances = [dict(rec, **spills.get(rec["instance"], {}))
+                 for rec in PB.kernel_attributes(dev)]
+    log(json.dumps(dict(k34_instances=instances, gpu=gpu)))
+    if any(r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1)
+           for r in instances):
+        raise AssertionError("a K3/K4 instance spills (or ptxas gave no "
+                             "report)")
+    attrs = {r["instance"]: r for r in instances}
     out = {}
     for tag, (qo, qd, tb) in waves.items():
-        def kernel(sub):
-            return lambda: PB.traverse(qo, qd, pb, t_bound=tb,
-                                       sub_packets=sub)
+        steps = PB._launch("grid", qo, qd, pb, tb, True)[5]
+        lanes = k34_lanes(pb, qo, qd, tb)
 
         def plain():
             PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
 
         plain_ms = [time_ms(plain, 1, warm=1)]
-        held = {"K3": [], "K4": []}
-        unheld = {"K3": [], "K4": []}
-        for name in ("K3", "K4", "K4", "K3"):
-            fn = kernel(name == "K4")
-            held[name].append(device_ms(fn, 20, warm=3))
-            unheld[name].append(time_ms(fn, 20))
+        held = k34_held(pb, qo, qd, tb)
         plain_ms.append(time_ms(plain, 1, warm=0))
         out[("plain", tag)] = float(np.mean(plain_ms))
-        for name in ("K3", "K4"):
-            out[(name, tag)] = (float(np.mean(held[name])),
-                                float(np.mean(unheld[name])))
+        for name, inst in K34_INSTANCES:
+            unheld = time_ms(lambda: PB._launch(inst, qo, qd, pb, tb), 20)
+            ms = float(np.mean(held[name]))
+            out[(name, tag)] = (ms, unheld)
+            a = attrs[inst]
+            b = bounds[(name[:2], tag)]
             log(json.dumps(dict(
-                metric=f"{name}_traversal_ms", wavefront=tag,
-                rays=int(qo[0].shape[0]), value=out[(name, tag)][0],
-                runs=held[name], unheld_ms=out[(name, tag)][1],
-                unheld_runs=unheld[name], plain_ms=out[("plain", tag)],
-                plain_runs=plain_ms, gpu=gpu)))
+                metric=f"{name[:2]}_traversal_ms", instance=name,
+                wavefront=tag, rays=int(qo[0].shape[0]), value=ms,
+                runs=held[name], unheld_ms=unheld,
+                plain_ms=out[("plain", tag)], plain_runs=plain_ms,
+                busy_lane_slots=lanes[name][0], lane_slots=lanes[name][1],
+                busy_lane_share=lanes[name][0] / max(lanes[name][1], 1),
+                one_thread_per_ray_utilisation=lane_utilisation(steps),
+                mean_steps_per_ray=float(steps.float().mean()),
+                max_steps=int(steps.max()), registers=a["registers"],
+                spill_store_bytes=a.get("spill_store_bytes"),
+                local_bytes=a["local_bytes"],
+                blocks_per_sm=a["blocks_per_sm"], bound_ms=b["bound_ms"],
+                share_of_bound=b["bound_ms"] / ms, gpu=gpu)))
+    # What a ray costs before any descent: the bounce-0 rays all dead (the
+    # bound read, the record written) and reversed (each visits the root
+    # only), every instance held in turns.
+    qo, qd, tb = waves["bounce-0"]
+    for case, (o, d, t) in (("all dead", (qo, qd, torch.full_like(tb, -1.0))),
+                            ("reversed", (qo, tuple(-c for c in qd), tb))):
+        steps = PB._launch("grid", o, d, pb, t, True)[5]
+        held = k34_held(pb, o, d, t)
+        log(json.dumps(dict(metric="K3_floor_ms", case=case,
+                            rays=int(steps.numel()),
+                            one_step_share=float((steps == 1).float().mean()),
+                            **{name: v for name, v in held.items()},
+                            gpu=gpu)))
     return out
+
+
+def k3_bounces(gpu: str, pb, bounces: list) -> None:
+    """K3 and K4 on the wavefront of every bounce of one `pack_all`
+    iteration of mesh.txt (the renderer's 8 K3 launches): every instance
+    bit for bit against the route's, steps included; the dead share, mean
+    and max steps, the one-thread-per-ray utilisation (from the steps);
+    each instance's busy lane share and its held time (in turns); and the
+    sums over the iteration."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    names = [name for name, _ in K34_INSTANCES]
+    total = dict.fromkeys(names, 0.0)
+    for b, (qo, qd, tb) in enumerate(bounces):
+        res = {name: PB._launch(inst, qo, qd, pb, tb, True)
+               for name, inst in K34_INSTANCES}
+        torch.cuda.synchronize()
+        route = res[names[0]]
+        for name, other in res.items():
+            if not same_bits(route, other):
+                raise AssertionError(f"K3 bounce {b}: {name} differs from "
+                                     "the route's instance")
+        lanes = k34_lanes(pb, qo, qd, tb)
+        held = k34_held(pb, qo, qd, tb)
+        steps = route[5]
+        rec = dict(metric="K3_bounce_ms", bounce=b, rays=int(steps.numel()),
+                   bitwise=True,
+                   dead_share=float((~(tb > 0)).float().mean()),
+                   mean_steps_per_ray=float(steps.float().mean()),
+                   max_steps=int(steps.max()),
+                   one_thread_per_ray_utilisation=lane_utilisation(steps))
+        for name in names:
+            ms = float(np.mean(held[name]))
+            total[name] += ms
+            rec[name] = dict(ms=ms, runs=held[name],
+                             busy_lane_share=lanes[name][0]
+                             / max(lanes[name][1], 1))
+        log(json.dumps(dict(rec, gpu=gpu)))
+    log(json.dumps(dict(metric="K3_iteration_ms", bounces=len(bounces),
+                        **{f"{name} ms": v for name, v in total.items()},
+                        config="mesh.txt 1024x1024 depth 8, pack_all, one "
+                               "iteration's K3 launches, each held",
+                        gpu=gpu)))
 
 
 def mesh_train(scene) -> None:

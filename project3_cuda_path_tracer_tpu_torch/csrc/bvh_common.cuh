@@ -7,7 +7,7 @@
 // nvcc would otherwise contract them into fused multiply-adds, and an ulp
 // moved near a Moller-Trumbore threshold (det 1e-12, t > 1e-6, bu+bv <= 1)
 // flips whether a lane hits. Written this way a lane takes the plain
-// version's decisions bit for bit, and so pops the same nodes.
+// version's decisions bit for bit, and so visits the same nodes.
 //
 // Rows are read as 16-byte vectors: a triangle row (24 floats, 96 B) is six
 // float4s, of which a test reads the first three (v0, e1, e2 and n0) and an
@@ -59,14 +59,6 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   r.iy = 1.0f / dy;
   r.iz = 1.0f / dz;
   return r;
-}
-
-// Ray i of the planar [3, n] origin and direction blocks.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ qo,
-                                        const float* __restrict__ qd,
-                                        int i, int n) {
-  return make_ray(qo[i], qo[n + i], qo[2 * n + i], qd[i], qd[n + i],
-                  qd[2 * n + i]);
 }
 
 // Does the ray enter the box lo..hi before t_best?

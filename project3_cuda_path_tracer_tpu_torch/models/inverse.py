@@ -45,7 +45,7 @@ class RenderParams(NamedTuple):
     cam: dict  # Camera.flat()
 
 
-def params_from_scene(scene: T.Scene, device="cpu") -> RenderParams:
+def params_from_scene(scene: T.Scene, device) -> RenderParams:
     """RenderParams of leaf tensors that require grad, cloned from the
     scene's tables onto `device` (the scene's own tables stay as they
     are)."""

@@ -4,19 +4,32 @@ Counterpart of project3_cuda_path_tracer_tpu/ops/pallas_bvh.py. The module
 keeps its name so that a reader finds the counterpart, but its Pallas
 kernels are now one CUDA source, csrc/bvh_binary.cu:
 
-  K3 (`_traverse_kernel` of the JAX package): one thread per ray walks the
-     skip-pointer tree with its own cursor: slab-test the node, run the leaf
-     if it is one and the ray entered it, then go to `cur+1` (an interior
-     node the ray entered) or to the node's escape index `skip`.
+  K3 (`_traverse_kernel` of the JAX package): each lane walks one ray over
+     the skip-pointer tree with its own cursor: slab-test the node, run the
+     leaf if it is one and the ray entered it, then go to `cur+1` (an
+     interior node the ray entered) or to the node's escape index `skip`.
+     The route's instance is one thread per ray (`grid`): every ray starts
+     at once, and a launch lasts about as long as its longest walks. The
+     `persistent` instance (K2's schedule: a grid that fills the card,
+     `_persistent_blocks`, whose warps take 32-ray chunks from a counter
+     and refill their finished lanes) is the A/B: it loses to `grid` on
+     every bounce of a `pack_all` iteration (PERF.md).
   K4 (`_traverse_kernel_sub`): the packet form, one cursor per 32-lane warp
-     (the counterpart of one cursor per 128-lane row). The warp descends
-     when `__any_sync` finds a lane that entered the box, and every lane
-     runs the leaf. Same outputs as K3.
+     (the counterpart of one cursor per 128-lane row). Persistent warps
+     form packets of 32 live rays in ray order; the cursor is the smallest
+     node any lane is due at, and a lane steps only at its own next node,
+     so it visits and tests exactly what its K3 walk does.
+A ray's visits depend only on the ray, so every instance gives the same
+outputs and step counts, bit for bit. A dead ray (t_bound <= 0 or NaN) is
+answered without reading the tree, and the rays are read from the planes
+as they are (a plane is copied only if it is not contiguous).
 
 `traverse()` is the wrapper the integrator calls: CPU tensors take
 `traverse_binary_plain` (a per-ray skip-cursor walk in torch ops, shared by
-K3 and K4); CUDA tensors launch the kernel. `LAUNCHES` and `LAUNCHES_SUB`
-count the K3 and K4 launches.
+K3 and K4); CUDA tensors launch K3's grid instance (LAUNCHES) or, with
+`sub_packets`, K4 (LAUNCHES_SUB). `_launch` reaches every instance (the
+persistent one counted in LAUNCHES_PERSISTENT), for chip_smoke.py and
+tests/test_torch_cuda.py only (CUDA tensors only).
 
 `pack_mesh` turns one mesh of a `MeshBundle` into the kernel's tables, bit
 for bit as the JAX package does:
@@ -24,7 +37,11 @@ for bit as the JAX package does:
   nodes_i [B,8] i32 = skip, meta, pad6 with meta = start*16 + count for
                       leaves (count <= LEAF_K) and -1 for interior nodes;
   tris [T+1, TRI_ROW] f32 = v0, e1, e2, n0, n1, n2, uv0, uv1, uv2 (+1
-                      degenerate pad row).
+                      degenerate pad row);
+and, for the kernels, which read only `nodes` and `tris`, the fused rows
+(`fuse_nodes`):
+  nodes [B,8] f32 = lo.xyz, hi.xyz, then skip and meta bit-cast to f32,
+                      one 32-byte row a node step.
 The helpers `box_hits` and `leaf_phase` are the plain arithmetic of the
 slab test and the Moller-Trumbore leaf that both traversal kernels (K2 in
 ops/bvh8.py too) run; csrc/bvh_common.cuh is their CUDA form, with the same
@@ -42,9 +59,13 @@ import torch
 from ..scene import types as T
 from ..scene.bvh import LEAF_K
 from ..utils import cuda_build
+from ..utils.device import stream_counter
 
-LAUNCHES = 0      # K3 launches
-LAUNCHES_SUB = 0  # K4 launches
+LAUNCHES = 0             # K3 launches of the grid instance (the route's)
+LAUNCHES_PERSISTENT = 0  # K3 persistent-instance launches (the A/B only)
+LAUNCHES_SUB = 0         # K4 launches
+# The kernel's instances, as csrc/bvh_binary.cu numbers them.
+INSTANCES = {"persistent": 0, "grid": 1, "packet": 2}
 
 BIG = 1e30
 TRI_ROW = 24      # v0(3) e1(3) e2(3) n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2)
@@ -57,6 +78,14 @@ class PackedMesh(NamedTuple):
     nodes_f: torch.Tensor  # [B,8] f32
     nodes_i: torch.Tensor  # [B,8] i32
     tris: torch.Tensor     # [T+1, TRI_ROW] f32
+    nodes: torch.Tensor    # [B,8] f32, fused rows (fuse_nodes)
+
+
+def fuse_nodes(nodes_f: torch.Tensor, nodes_i: torch.Tensor) -> torch.Tensor:
+    """The kernels' node rows: nodes_f's lo.xyz, hi.xyz, then nodes_i's skip
+    and meta with their bits kept as f32 (never computed with)."""
+    return torch.cat([nodes_f[:, :6],
+                      nodes_i[:, :2].contiguous().view(F32)], dim=1)
 
 
 def mesh_range(meshes: T.MeshBundle, mesh_index: int):
@@ -108,9 +137,10 @@ def pack_mesh(meshes: T.MeshBundle, mesh_index: int = 0) -> PackedMesh:
     nodes_i = np.zeros((b, 8), np.int32)
     nodes_i[:, 0] = skip
     nodes_i[:, 1] = meta
-    return PackedMesh(nodes_f=torch.from_numpy(nodes_f),
-                      nodes_i=torch.from_numpy(nodes_i),
-                      tris=torch.from_numpy(pack_tris(meshes, t0, t1, 1)))
+    nodes_f, nodes_i = torch.from_numpy(nodes_f), torch.from_numpy(nodes_i)
+    return PackedMesh(nodes_f=nodes_f, nodes_i=nodes_i,
+                      tris=torch.from_numpy(pack_tris(meshes, t0, t1, 1)),
+                      nodes=fuse_nodes(nodes_f, nodes_i))
 
 
 def pack_all(meshes: T.MeshBundle):
@@ -229,15 +259,19 @@ def rays(qo: Sequence[torch.Tensor], qd: Sequence[torch.Tensor]):
 def traverse_binary_plain(qo, qd, packed: PackedMesh,
                           t_bound: Optional[torch.Tensor] = None):
     """Nearest hit over the binary tree, one skip cursor per ray, in torch
-    ops (the plain version of K3 and K4). Each step advances every ray whose
-    cursor is still >= 0 by one node."""
+    ops (the plain version of K3 and K4), over the JAX-layout tables
+    nodes_f and nodes_i. Each step advances every ray whose cursor is still
+    >= 0 by one node. Returns the `traverse` outputs and the per-ray step
+    count [N] int32 (node visits: 1 for a ray that enters no box)."""
     o, d, inv = rays(qo, qd)
     n = o.shape[0]
     st = new_state(n, t_bound, o.device)
     cur = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    steps = torch.zeros((n,), dtype=I32, device=o.device)
     rows = torch.arange(n, device=o.device)
     while rows.numel():
         c = cur[rows]
+        steps[rows] += 1
         nf, ni = packed.nodes_f[c], packed.nodes_i[c]
         hit = box_hits(nf[:, 0:3], nf[:, 3:6], o[rows], inv[rows],
                        st.t_best[rows])
@@ -249,7 +283,7 @@ def traverse_binary_plain(qo, qd, packed: PackedMesh,
         nxt = torch.where(hit & (meta < 0), c + 1, ni[:, 0].to(torch.int64))
         cur[rows] = nxt
         rows = rows[nxt >= 0]
-    return finish(st)
+    return finish(st) + (steps,)
 
 
 def check_rays(qo, qd, t_bound) -> torch.device:
@@ -277,23 +311,21 @@ def check_table(name: str, t: torch.Tensor, cols: int, dtype, dev) -> None:
         raise ValueError(f"{name} must be contiguous on {dev}")
 
 
+def check_tables(packed: PackedMesh, dev) -> None:
+    check_table("nodes_f", packed.nodes_f, 8, F32, dev)
+    check_table("nodes_i", packed.nodes_i, 8, I32, dev)
+    check_table("tris", packed.tris, TRI_ROW, F32, dev)
+    check_table("nodes", packed.nodes, 8, F32, dev)
+    if packed.nodes.shape[0] != packed.nodes_f.shape[0]:
+        raise ValueError("nodes and nodes_f must have one row per node")
+
+
 def check_aligned(*tables: torch.Tensor) -> None:
     """The kernels read table rows as 16-byte vectors."""
     for t in tables:
         if t.data_ptr() % 16:
             raise ValueError("the kernels read rows as 16-byte vectors: "
                              "tables must be 16-byte aligned")
-
-
-def launch_args(qo, qd, t_bound, n: int, dev):
-    """Stacked [3,N] rays, the bound and a [6,N] output block on `dev`."""
-    o = torch.stack(list(qo)).contiguous()
-    d = torch.stack(list(qd)).contiguous()
-    tb = (torch.full((n,), BIG, dtype=F32, device=dev) if t_bound is None
-          else t_bound.contiguous())
-    out = torch.empty((6, n), dtype=F32, device=dev)
-    tri = torch.empty((n,), dtype=I32, device=dev)
-    return o, d, tb, out, tri
 
 
 def unpack_out(out: torch.Tensor, tri: torch.Tensor):
@@ -309,51 +341,128 @@ def raise_on(rc: int, lib, what: str) -> None:
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bvh_binary")
-    fn = lib.bvh_binary_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bvh_binary_traverse.argtypes = ([i32] + [ptr] * 7 + [i32]
+                                        + [ptr] * 5 + [i32] + [ptr] * 3)
+    lib.bvh_binary_attributes.argtypes = [i32, ctypes.POINTER(i32)]
+    for fn in (lib.bvh_binary_traverse, lib.bvh_binary_attributes):
+        fn.restype = ctypes.c_int
     lib.bvh_error_string.restype = ctypes.c_char_p
     lib.bvh_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def _attributes(instance: str) -> tuple:
+    """(registers, local bytes, max threads per block, resident blocks per
+    SM, static shared bytes) of one instance on the current device."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    raise_on(lib.bvh_binary_attributes(INSTANCES[instance], out), lib,
+             "bvh_binary attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_blocks(device_index: int, instance: str) -> int:
+    """The persistent grid that fills the card: SMs x the instance's
+    resident blocks, worked out once per device and instance."""
+    with torch.cuda.device(device_index):
+        per_sm = _attributes(instance)[3]
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
+def kernel_attributes(device) -> list:
+    """Registers, local memory bytes, max threads per block, resident
+    blocks per SM and static shared bytes of every kernel instance, as the
+    CUDA runtime reports them for `device`."""
+    recs = []
+    with torch.cuda.device(device):
+        for instance in INSTANCES:
+            out = _attributes(instance)
+            recs.append(dict(instance=instance, registers=out[0],
+                             local_bytes=out[1], max_threads_per_block=out[2],
+                             blocks_per_sm=out[3], static_smem_bytes=out[4]))
+    return recs
+
+
+def _launch(instance: str, qo, qd, packed: PackedMesh,
+            t_bound: Optional[torch.Tensor] = None,
+            return_steps: bool = False,
+            stats: Optional[torch.Tensor] = None):
+    """Check the inputs and launch one instance of K3/K4 on the current
+    stream (CUDA tensors only); count it in the instance's counter.
+    `stats`, an int64 [2] tensor on the card, gets the busy and total lane
+    slots of the steps added."""
+    global LAUNCHES, LAUNCHES_PERSISTENT, LAUNCHES_SUB
+    if instance not in INSTANCES:
+        raise ValueError(f"instance must be one of {tuple(INSTANCES)}")
+    dev = check_rays(qo, qd, t_bound)
+    check_tables(packed, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    check_aligned(packed.nodes, packed.tris)
+    if stats is not None and (stats.dtype != torch.int64
+                              or tuple(stats.shape) != (2,)
+                              or stats.device != dev
+                              or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous int64 [2] tensor on "
+                         "the rays' device")
+    n = qo[0].shape[0]
+    if n >= 1 << 30:
+        raise ValueError(f"{n} rays: the kernel's ray counter takes < 2^30")
+    planes = [c.contiguous() for c in (*qo, *qd)]
+    tb = None if t_bound is None else t_bound.contiguous()
+    out = torch.empty((6, n), dtype=F32, device=dev)
+    tri = torch.empty((n,), dtype=I32, device=dev)
+    steps = (torch.empty((n,), dtype=I32, device=dev) if return_steps
+             else None)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        blocks, counter = 0, None
+        if instance != "grid":
+            blocks = _persistent_blocks(dev.index, instance)
+            counter = stream_counter(dev, stream).data_ptr()
+        rc = lib.bvh_binary_traverse(
+            INSTANCES[instance], *[c.data_ptr() for c in planes],
+            tb.data_ptr() if tb is not None else None, n,
+            packed.nodes.data_ptr(), packed.tris.data_ptr(), out.data_ptr(),
+            tri.data_ptr(), steps.data_ptr() if steps is not None else None,
+            blocks, counter, stats.data_ptr() if stats is not None else None, stream)
+    raise_on(rc, lib, "bvh_binary")
+    if instance == "grid":
+        LAUNCHES += 1
+    elif instance == "persistent":
+        LAUNCHES_PERSISTENT += 1
+    else:
+        LAUNCHES_SUB += 1
+    res = unpack_out(out, tri)
+    return res + (steps,) if return_steps else res
+
+
 def traverse(qo, qd, packed: PackedMesh,
              t_bound: Optional[torch.Tensor] = None,
-             sub_packets: bool = False):
+             sub_packets: bool = False, return_steps: bool = False):
     """Nearest hit over the packed binary tree for planar object-space rays
     (the JAX `traverse_packets`).
 
     qo, qd: (x, y, z) [N] float32 planes. `t_bound` [N] (object space) is
     the occlusion bound: subtrees beyond it are pruned, and a lane with
-    t_bound <= 0 is dead; None means unbounded. Returns (t_obj [N], normal
-    (nx, ny, nz) [N] each, u [N], v [N], tri [N] int32 with -1 = miss). A
-    miss keeps t = t_bound with zero normal and uv. `sub_packets` picks K4
-    over K3 on the card; the results are the same.
+    t_bound <= 0 (or NaN) is dead; None means unbounded. Returns (t_obj
+    [N], normal (nx, ny, nz) [N] each, u [N], v [N], tri [N] int32 with -1
+    = miss). A miss keeps t = t_bound with zero normal and uv.
+    `return_steps` appends the per-ray node visits [N] int32.
+    `sub_packets` picks K4 over K3 on the card; the results are the same,
+    bit for bit.
 
-    CPU tensors take `traverse_binary_plain`; CUDA tensors launch the kernel
-    on the current stream (no synchronisation)."""
-    global LAUNCHES, LAUNCHES_SUB
+    CPU tensors take `traverse_binary_plain`; CUDA tensors launch K3's
+    grid instance, one thread per ray (LAUNCHES), or K4 (LAUNCHES_SUB) on
+    the current stream (no synchronisation)."""
     dev = check_rays(qo, qd, t_bound)
-    check_table("nodes_f", packed.nodes_f, 8, F32, dev)
-    check_table("nodes_i", packed.nodes_i, 8, I32, dev)
-    check_table("tris", packed.tris, TRI_ROW, F32, dev)
     if dev.type == "cpu":
-        return traverse_binary_plain(qo, qd, packed, t_bound)
-    check_aligned(packed.nodes_f, packed.nodes_i, packed.tris)
-    n = qo[0].shape[0]
-    o, d, tb, out, tri = launch_args(qo, qd, t_bound, n, dev)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        rc = lib.bvh_binary_traverse(
-            o.data_ptr(), d.data_ptr(), tb.data_ptr(), n,
-            packed.nodes_f.data_ptr(), packed.nodes_i.data_ptr(),
-            packed.tris.data_ptr(), int(sub_packets), out.data_ptr(),
-            tri.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, lib, "bvh_binary")
-    if sub_packets:
-        LAUNCHES_SUB += 1
-    else:
-        LAUNCHES += 1
-    return unpack_out(out, tri)
+        check_tables(packed, dev)
+        res = traverse_binary_plain(qo, qd, packed, t_bound)
+        return res if return_steps else res[:5]
+    return _launch("packet" if sub_packets else "grid", qo, qd, packed,
+                   t_bound, return_steps)

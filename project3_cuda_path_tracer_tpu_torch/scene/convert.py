@@ -19,7 +19,7 @@ import torch
 from ..models.inverse import RenderParams, param_leaves
 from ..models.optim import AdamState
 from ..ops.bvh8 import PackedMesh8
-from ..ops.pallas_bvh import PackedMesh
+from ..ops.pallas_bvh import PackedMesh, fuse_nodes
 from . import types as T
 
 _MATERIAL_KEYS = ("color", "specular_exponent", "specular_color",
@@ -47,13 +47,15 @@ def packed_mesh_from_numpy(packed: dict):
     """A port packed mesh from a dict of a JAX packed mesh's fields: the
     fused `nodes` table and `tris` of a PackedMesh8 (the 8-wide kernel
     reads nothing else), or `nodes_f`/`nodes_i`/`tris` of a binary
-    PackedMesh."""
+    PackedMesh (whose fused `nodes` rows are built from them)."""
     if packed.get("nodes") is not None:
         return PackedMesh8(nodes=_tensor(packed["nodes"], np.float32),
                            tris=_tensor(packed["tris"], np.float32))
-    return PackedMesh(nodes_f=_tensor(packed["nodes_f"], np.float32),
-                      nodes_i=_tensor(packed["nodes_i"], np.int32),
-                      tris=_tensor(packed["tris"], np.float32))
+    nodes_f = _tensor(packed["nodes_f"], np.float32)
+    nodes_i = _tensor(packed["nodes_i"], np.int32)
+    return PackedMesh(nodes_f=nodes_f, nodes_i=nodes_i,
+                      tris=_tensor(packed["tris"], np.float32),
+                      nodes=fuse_nodes(nodes_f, nodes_i))
 
 
 def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
@@ -107,7 +109,7 @@ def _param_tensors(params, device) -> RenderParams:
              for k, v in params.cam.items()})
 
 
-def render_params_from_numpy(params, device="cpu") -> RenderParams:
+def render_params_from_numpy(params, device) -> RenderParams:
     """The port's RenderParams (leaves that require grad) from the JAX
     RenderParams as NumPy, i.e. `jax.tree_util.tree_map(np.asarray,
     params)`."""
@@ -117,7 +119,7 @@ def render_params_from_numpy(params, device="cpu") -> RenderParams:
     return out
 
 
-def adam_state_from_numpy(state, device="cpu") -> AdamState:
+def adam_state_from_numpy(state, device) -> AdamState:
     """The port's Adam state from optax's ScaleByAdamState as NumPy:
     `count`, and `mu`/`nu` laid out as the JAX RenderParams, whose leaves
     come out in `param_leaves` order."""

@@ -28,8 +28,8 @@ from project3_cuda_path_tracer_tpu.scene import bvh as JB
 from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
 from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
-from project3_cuda_path_tracer_tpu_torch.scene.convert import \
-    mesh_bundle_from_numpy
+from project3_cuda_path_tracer_tpu_torch.scene.convert import (
+    mesh_bundle_from_numpy, packed_mesh_from_numpy)
 
 torch.set_num_threads(2)
 
@@ -73,8 +73,14 @@ def _packed(kind, bundle):
 
 
 def _traverse_plain(kind, qo, qd, packed, t_bound=None):
+    return _traverse_counted(kind, qo, qd, packed, t_bound)[:5]
+
+
+def _traverse_counted(kind, qo, qd, packed, t_bound=None):
+    """The plain version's outputs and its per-ray count: K2's pops, or
+    K3/K4's node visits."""
     if kind == "bvh8":
-        return P8.traverse8_plain(qo, qd, packed, t_bound)[:5]
+        return P8.traverse8_plain(qo, qd, packed, t_bound)
     return PPB.traverse_binary_plain(qo, qd, packed, t_bound)
 
 
@@ -138,6 +144,25 @@ def test_pack_matches_jax(kind, torus, blob):
             fields = ("nodes_f", "nodes_i", "tris")
         for f in fields:
             _assert_bitwise(getattr(got, f).numpy(), getattr(want, f), f)
+
+
+def test_fused_node_rows_match_jax_tables(torus, blob):
+    """The kernels' fused node rows hold the JAX tables' box (nodes_f cols
+    0-5) and skip and meta (nodes_i cols 0-1) bit for bit, whether packed
+    by the port or carried over from the JAX package."""
+    js, blob_bundle = blob
+    for port_bundle, jax_bundle in ((torus[1], torus[0]),
+                                    (blob_bundle, js.meshes)):
+        want = JPB.pack_mesh(jax_bundle, 0)
+        carried = packed_mesh_from_numpy(
+            {f: np.asarray(getattr(want, f)) for f in want._fields})
+        for packed in (_packed("binary", port_bundle), carried):
+            nodes = packed.nodes.numpy()
+            assert nodes.shape == (want.nodes_f.shape[0], 8)
+            _assert_bitwise(nodes[:, :6], np.asarray(want.nodes_f)[:, :6],
+                            "box")
+            _assert_bitwise(nodes[:, 6:].view(np.int32),
+                            np.asarray(want.nodes_i)[:, :2], "skip, meta")
 
 
 def test_pack_all8_matches_parser_default(blob):
@@ -244,28 +269,30 @@ def test_dead_lanes_miss(kind, torus):
     o, d = (_torch(a) for a in _aimed_rays(512, seed=2))
     bound = torch.full((512,), 1e30)
     bound[::2] = -1.0
-    t, _, _, _, tri = _traverse_plain(kind, o, d, packed, bound)
+    t, _, _, _, tri, pops = _traverse_counted(kind, o, d, packed, bound)
     assert (tri[::2] == -1).all() and (t[::2] == -1).all()
     assert (tri[1::2] >= 0).sum() > 100
-    if kind == "bvh8":
-        pops = P8.traverse8_plain(o, d, packed, bound)[5]
-        assert (pops[::2] == 1).all()
-        assert (pops[1::2][tri[1::2] >= 0] > 1).all()
+    assert (pops[::2] == 1).all()
+    assert (pops[1::2][tri[1::2] >= 0] > 1).all()
 
 
 @pytest.mark.parametrize("dead", [-1.0, 0.0, float("nan")])
-def test_plain_dead_lane_record(dead, torus):
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_dead_lane_record(kind, dead, torus):
     """A dead lane (t_bound <= 0 or NaN) gets exactly the miss record: t =
-    t_bound (bit for bit), zero normal and uv, tri -1, one pop. The kernel
-    writes that record without reading the tree."""
-    packed = _packed("bvh8", torus[1])
+    t_bound (bit for bit), zero normal and uv, tri -1, one pop (K2) or one
+    node visit (K3/K4). The kernels write that record without reading the
+    tree."""
+    packed = _packed(kind, torus[1])
     o, d = (_torch(a) for a in _aimed_rays(256, seed=8))
     bound = torch.full((256,), 1e30)
     bound[::3] = dead
-    t, nrm, u, v, tri, pops = P8.traverse8_plain(o, d, packed, bound)
-    for any_hit in (False, True):
-        occl = P8.traverse8_plain(o, d, packed, bound, any_hit=any_hit)
-        assert torch.equal(occl[5][::3], torch.ones(86, dtype=torch.int32))
+    t, nrm, u, v, tri, pops = _traverse_counted(kind, o, d, packed, bound)
+    if kind == "bvh8":
+        for any_hit in (False, True):
+            occl = P8.traverse8_plain(o, d, packed, bound, any_hit=any_hit)
+            assert torch.equal(occl[5][::3],
+                               torch.ones(86, dtype=torch.int32))
     np.testing.assert_array_equal(t[::3].numpy().view(np.int32),
                                   bound[::3].numpy().view(np.int32))
     assert all((c[::3] == 0).all() for c in list(nrm) + [u, v])
@@ -295,15 +322,19 @@ def test_any_hit_matches_nearest_hit_mask(blob):
 def test_wrapper_takes_plain_path_on_cpu(kind, torus):
     packed = _packed(kind, torus[1])
     o, d = (_torch(a) for a in _aimed_rays(256, seed=3))
-    before = (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_SUB)
+    before = (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT,
+              PPB.LAUNCHES_SUB)
     if kind == "bvh8":
         got = P8.traverse8(o, d, packed, return_pops=True)
         want = P8.traverse8_plain(o, d, packed)
-        assert torch.equal(got[5], want[5])
     else:
-        got = PPB.traverse(o, d, packed, sub_packets=True)
+        assert len(PPB.traverse(o, d, packed, sub_packets=True)) == 5
+        got = PPB.traverse(o, d, packed, sub_packets=True,
+                           return_steps=True)
         want = PPB.traverse_binary_plain(o, d, packed)
-    assert (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_SUB) == before
+    assert torch.equal(got[5], want[5])
+    assert (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT,
+            PPB.LAUNCHES_SUB) == before
     assert torch.equal(got[4], want[4]) and torch.equal(got[0], want[0])
 
 
@@ -326,26 +357,37 @@ def test_wrapper_rejects_bad_inputs(kind, bad, torus):
         fn(o, d, packed, t_bound=tb)
 
 
-def test_grid_schedule_refuses_cpu_tensors(torus):
-    """K2's grid and tiny-stack instances are the card's checks only: CPU
-    tensors raise (they never fall back to the plain version), and so does
-    the persistent entry `_launch`."""
-    packed = _packed("bvh8", torus[1])
+@pytest.mark.parametrize("kind", KINDS)
+def test_grid_schedule_refuses_cpu_tensors(kind, torus):
+    """The A/B instances are the card's checks only: K2's grid and
+    tiny-stack instances, K3's persistent instance and K4's entry raise on
+    CPU tensors (they never fall back to the plain version), and so does
+    each kernel's `_launch` of its route's instance; no launch is
+    counted."""
+    packed = _packed(kind, torus[1])
     o, d = (_torch(a) for a in _aimed_rays(64))
-    before = (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY)
-    with pytest.raises(ValueError, match="CUDA"):
-        P8._traverse8_grid(o, d, packed)
-    with pytest.raises(ValueError, match="CUDA"):
-        P8._traverse8_tiny(o, d, packed)
-    with pytest.raises(ValueError, match="CUDA"):
-        P8._launch("persistent", o, d, packed)
-    assert (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY) == before
+    counts = (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PPB.LAUNCHES,
+              PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB)
+    if kind == "bvh8":
+        entries = (P8._traverse8_grid, P8._traverse8_tiny,
+                   lambda *a: P8._launch("persistent", *a))
+    else:
+        entries = (lambda *a: PPB._launch("persistent", *a),
+                   lambda *a: PPB._launch("packet", *a),
+                   lambda *a: PPB._launch("grid", *a))
+    for entry in entries:
+        with pytest.raises(ValueError, match="CUDA"):
+            entry(o, d, packed)
+    assert (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PPB.LAUNCHES,
+            PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB) == counts
 
 
-def test_traverse8_cpu_takes_noncontiguous_planes(torus):
-    """traverse8 on CPU tensors equals traverse8_plain when the planes are
-    strided views (columns of [N, 3] blocks), bound included."""
-    packed = _packed("bvh8", torus[1])
+@pytest.mark.parametrize("kind", KINDS)
+def test_traverse8_cpu_takes_noncontiguous_planes(kind, torus):
+    """The wrappers (traverse8, and pallas_bvh.traverse for K3 and K4) on
+    CPU tensors equal their plain versions when the planes are strided
+    views (columns of [N, 3] blocks), bound included."""
+    packed = _packed(kind, torus[1])
     o, d = _aimed_rays(512, seed=9)
     ob = torch.from_numpy(np.ascontiguousarray(o.T))
     db = torch.from_numpy(np.ascontiguousarray(d.T))
@@ -354,10 +396,22 @@ def test_traverse8_cpu_takes_noncontiguous_planes(torus):
     assert not qo[0].is_contiguous()
     tb = torch.full((1024,), 1e30)[::2]
     tb[::4] = -1.0
-    got = P8.traverse8(qo, qd, packed, t_bound=tb, return_pops=True)
-    want = P8.traverse8_plain(_torch(o), _torch(d), packed,
-                              tb.contiguous())
+    if kind == "bvh8":
+        got = P8.traverse8(qo, qd, packed, t_bound=tb, return_pops=True)
+    else:
+        got = PPB.traverse(qo, qd, packed, t_bound=tb, return_steps=True)
+    want = _traverse_counted(kind, _torch(o), _torch(d), packed,
+                             tb.contiguous())
     for g, w in zip(got[:1] + got[1] + got[2:], want[:1] + want[1]
                     + want[2:]):
         assert torch.equal(g, w)
     assert (got[4] >= 0).sum() > 150
+
+
+def test_k3_ab_refuses_a_baseline_of_another_interface():
+    """tools/k3_ab.py binds only the stacked-ray kernel's C entry: a
+    checkout whose bvh_binary.cu reads planar rays (this one) is refused
+    before anything is built."""
+    from project3_cuda_path_tracer_tpu_torch.tools import k3_ab
+    with pytest.raises(ValueError, match="stacked-ray"):
+        k3_ab.build_baseline(REPO)

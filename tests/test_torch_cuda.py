@@ -1,10 +1,10 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K3/K4
-(csrc/bvh_binary.cu) and the probes P1/P2 (csrc/gather.cu,
-csrc/extract_cost.cu). Every test here is `cuda`-marked and skips without a
-card. The file imports neither JAX nor the JAX package, so it runs where
-they are absent:
+K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K3 in
+both schedules and both node-row layouts and K4 (csrc/bvh_binary.cu), and
+the probes P1/P2 (csrc/gather.cu, csrc/extract_cost.cu). Every test here
+is `cuda`-marked and skips without a card. The file imports neither JAX
+nor the JAX package, so it runs where they are absent:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
@@ -137,7 +137,8 @@ def _aimed_rays(n, seed, dev):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """K2, K3 and K4 against their plain versions on the card (needs a card
-    and nvcc; chip_smoke.py runs the full checks on the blob)."""
+    and nvcc; chip_smoke.py runs the full checks on the blob): K2 on >= 99%
+    of the lanes, K3 and K4 bit for bit, node visits included."""
     _need_card()
     dev = torch.device("cuda")
     torus = PB.build_mesh_bundle([TORUS])
@@ -151,9 +152,10 @@ def test_kernels_match_plain_on_card():
     assert (got[5] == want[5]).float().mean() >= 0.99
     plain = PPB.traverse_binary_plain(o, d, pb)
     for sub in (False, True):
-        k = PPB.traverse(o, d, pb, sub_packets=sub)
+        k = PPB.traverse(o, d, pb, sub_packets=sub, return_steps=True)
         torch.cuda.synchronize()
-        assert (k[4] == plain[4]).float().mean() >= 0.99
+        assert _same_bits(k, plain)
+    assert int((plain[4] >= 0).sum()) > 2000
 
 
 def _k2_inputs(dev):
@@ -252,3 +254,87 @@ def test_probe_kernels_match_plain_on_card(probe):
         for kind in P2.KINDS:
             assert torch.equal(P2.extract_cost(table, state, kind, 64),
                                P2.extract_cost_plain(table, state, kind, 64))
+
+
+def _binary_inputs(n, dev):
+    """The torus in the binary layout on `dev`, and n aimed rays of which
+    some start inside its box and some are dead (t_bound -1, 0 and NaN)."""
+    torus = PB.build_mesh_bundle([TORUS])
+    pb = PPB.PackedMesh(*(t.to(dev) for t in PPB.pack_mesh(torus)))
+    o, d = _aimed_rays(max(n, 1), 8, dev)
+    o = tuple(torch.where(torch.arange(max(n, 1), device=dev) % 5 == 0,
+                          0.3 * c, c)[:n] for c in o)
+    d = tuple(c[:n] for c in d)
+    tb = torch.full((n,), 1e30, device=dev)
+    tb[::7], tb[3::11], tb[5::13] = -1.0, 0.0, float("nan")
+    return pb, o, d, tb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["persistent", "packet", "grid stats"])
+def test_k3_instances_equal_bitwise_on_card(instance):
+    """K3's grid instance (the route's) against K3's persistent instance,
+    K4 (warp packets) and the grid instance asked for `stats` (which votes
+    every step): t, normal, uv, tri and node visits bit for bit on the
+    torus, dead lanes included, each counted in its instance's LAUNCHES,
+    and all equal to the plain version; a dead lane
+    keeps t = t_bound with one visit; `stats` counts busy <= total lane
+    slots."""
+    _need_card()
+    dev = torch.device("cuda")
+    pb, o, d, tb = _binary_inputs(4096, dev)
+    counts = (PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB)
+    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+    route = PPB.traverse(o, d, pb, t_bound=tb, return_steps=True)
+    if instance == "persistent":
+        other = PPB._launch("persistent", o, d, pb, tb, True, stats)
+        want = (counts[0] + 1, counts[1] + 1, counts[2])
+    elif instance == "packet":
+        other = PPB._launch("packet", o, d, pb, tb, True, stats)
+        want = (counts[0] + 1, counts[1], counts[2] + 1)
+    else:
+        other = PPB._launch("grid", o, d, pb, tb, True, stats)
+        want = (counts[0] + 2, counts[1], counts[2])
+    plain = PPB.traverse_binary_plain(o, d, pb, t_bound=tb)
+    torch.cuda.synchronize()
+    assert (PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB) == want
+    assert _same_bits(route, other) and _same_bits(route, plain)
+    assert int((route[4] >= 0).sum()) > 1000
+    dead = ~(tb > 0)
+    assert torch.equal(route[0][dead].view(torch.int32),
+                       tb[dead].view(torch.int32))
+    assert (route[4][dead] == -1).all() and (route[5][dead] == 1).all()
+    assert 0 < int(stats[0]) <= int(stats[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 33, "all dead"])
+def test_k3_k4_edge_counts_on_card(n):
+    """Ray counts around a warp (0, 1, 31, 33) and a wavefront whose every
+    lane is dead: every K3/K4 instance equals the plain version bit for
+    bit."""
+    _need_card()
+    dev = torch.device("cuda")
+    pb, o, d, tb = _binary_inputs(4096 if n == "all dead" else n, dev)
+    if n == "all dead":
+        tb = torch.full_like(tb, -1.0)
+    plain = PPB.traverse_binary_plain(o, d, pb, t_bound=tb)
+    for instance in ("persistent", "grid", "packet"):
+        got = PPB._launch(instance, o, d, pb, tb, True)
+        torch.cuda.synchronize()
+        assert _same_bits(got, plain), instance
+    if n == "all dead":
+        assert (plain[5] == 1).all() and (plain[4] == -1).all()
+
+
+@pytest.mark.cuda
+def test_fused_rows_on_card():
+    """The fused node rows on the card hold the two JAX-layout tables' box,
+    skip and meta bit for bit."""
+    _need_card()
+    dev = torch.device("cuda")
+    pb, _, _, _ = _binary_inputs(1, dev)
+    assert torch.equal(pb.nodes[:, :6].view(torch.int32),
+                       pb.nodes_f[:, :6].view(torch.int32))
+    assert torch.equal(pb.nodes[:, 6:].contiguous().view(torch.int32),
+                       pb.nodes_i[:, :2])

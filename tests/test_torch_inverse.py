@@ -86,7 +86,7 @@ def check_grads_match_jax(js, ps, mesh=False):
     vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
     (_, jimg), _ = vg(jparams, jnp.asarray(resid))
 
-    params = PInv.params_from_scene(ps)
+    params = PInv.params_from_scene(ps, device="cpu")
     img = PInv.render_image(params, ps.geoms, ps.meshes, ps.textures, None,
                             pcfg, ps.packed_meshes, iteration=IT)
     diverged = (np.abs(img.detach().numpy() - np.asarray(jimg))
@@ -134,7 +134,7 @@ def test_grads_finite_everywhere(name):
     ps = _sized(load_scene(os.path.join(SCENES, name + ".txt")),
                 stratified=False)
     cfg = PI.build_trace_config(ps)
-    params = PInv.params_from_scene(ps)
+    params = PInv.params_from_scene(ps, device="cpu")
     gen = PInv.step_generator(0, 0, "cpu")
     loss = PInv.mse_loss(params, ps.geoms, ps.meshes, ps.textures, gen, cfg,
                          torch.zeros((RES, RES, 3)))
@@ -186,8 +186,8 @@ def test_adam_matches_optax(steps):
     for _ in range(2):
         upd, state = opt.update(rand_like(jparams), state, jparams)
         jparams = optax.apply_updates(jparams, upd)
-    params = render_params_from_numpy(_np(jparams))
-    pstate = adam_state_from_numpy(_np(state[0]))
+    params = render_params_from_numpy(_np(jparams), device="cpu")
+    pstate = adam_state_from_numpy(_np(state[0]), device="cpu")
     leaves = PInv.param_leaves(params)
     names = _leaf_names(jparams)
     dropped = {names.index(".cam['aperture']"),
@@ -237,7 +237,7 @@ def test_train_scan_equals_sequential_steps(history):
     seed_hist = PInv.make_seed_history(*tables, cfg)
 
     def start():
-        p = PInv.params_from_scene(ps)
+        p = PInv.params_from_scene(ps, device="cpu")
         hist = seed_hist(p, PInv.step_generator(99, 0, "cpu"))
         return p, optim.init(PInv.param_leaves(p)), hist
 
@@ -276,7 +276,7 @@ def test_history_grad_equals_unbiased_when_residual_is_fresh(draws):
     ps.settings.stratified = draws == "stratified"
     cfg = PI.build_trace_config(ps)
     tables = (ps.geoms, ps.meshes, ps.textures)
-    params = PInv.params_from_scene(ps)
+    params = PInv.params_from_scene(ps, device="cpu")
     leaves = PInv.param_leaves(params)
     target = torch.full((RES, RES, 3), 0.25)
     strat = draws == "stratified"
