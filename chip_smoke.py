@@ -31,7 +31,12 @@ once) and drives these paths:
     and the mesh scene through the differentiable recompute (K2 inside);
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
-    bit for bit against its plain version first.
+    bit for bit against its plain version first: every P1 instance (the
+    table in one block's shared memory, split across a cluster of 2 or 4,
+    or read through L2) at the 64 KB, 256 KB and 512 KB tables, timed in
+    turns warm and cold beside torch.take; every P2 kind at 256 steps and,
+    against the first port's kernel, at 4,096, with the chain floor's terms
+    (a dependent row load, FP32 operation and shuffle) measured alone.
 Kernel and plain version are timed in turns. Every phase raises on failure,
 so any failure exits non-zero. Without a card, or without the rest of the
 repository beside it, it exits non-zero before printing any result.
@@ -1396,34 +1401,109 @@ def profile_one(fn, top: int = 6) -> dict:
                              for t, c, n in per_kernel[:top]])
 
 
-def probe_phases(gpu: str) -> list:
-    """P1 and P2: each kernel bit for bit against its plain version, then
-    each probe's entry point (its main()) with the counts at 0 before and
-    read after. Returns their `kernels` entries."""
+def p1_sizes(gpu: str) -> dict:
+    """P1 at the probe's 64 KB and 256 KB atlases and the 512 KB sky table:
+    every instance that holds the table bit for bit against the plain
+    version, then timed in turns (in order, then reversed) warm (stream
+    held, 20 calls) and cold (each call after a 128 MB write), beside
+    `torch.take` and the plain version. Returns the records by texels."""
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_cold_ms
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as held_ms
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for side in (*P1.SIDES, P1.SKY):
+        table, _, idx = P1.inputs(side)
+        p = table.numel()
+        want = P1.gather_plain(table, idx).view(torch.int32)
+        fits = [k for k in P1.INSTANCES
+                if P1.slice_bytes(p, k) <= P1.SLICE_BYTES]
+        for k in fits:
+            got = P1._gather_instance(k, table, idx)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(torch.int32), want)
+            log(json.dumps(dict(check=f"P1 {P1.INSTANCES[k]} P={p}",
+                                fetches=idx.numel(), bitwise=equal)))
+            if not equal:
+                raise AssertionError(f"P1 {P1.INSTANCES[k]} differs at P={p}")
+        t_i32, idx64 = table.view(torch.int32), idx.long()
+        fns = {P1.INSTANCES[k]: (lambda k=k: P1._gather_instance(
+            k, table, idx)) for k in fits}
+        fns["torch_take"] = lambda: torch.take(t_i32, idx64)
+        warm = {k: [] for k in fns}
+        cold = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            warm[k].append(held_ms(fns[k], 20, warm=3))
+            cold[k].append(float(np.median(time_cold_ms(fns[k], 10))))
+        plain = held_ms(lambda: P1.gather_plain(table, idx), 20, warm=3)
+        b = bound(idx.numel() * 8 + p * 4, 0)
+        pick = P1.INSTANCES[P1.instance_for(p * 4)]
+        rec = dict(metric="P1_gather_ms", texels=p, table_bytes=p * 4,
+                   pick=pick, gpu=gpu, bound_ms=b["bound_ms"],
+                   plain_ms=plain)
+        for k, name in ((k, P1.INSTANCES[k]) for k in fits):
+            grid, per = P1.plan(0, k, p)
+            rec[name] = dict(
+                ms=float(np.mean(warm[name])),
+                cold_ms=float(np.mean(cold[name])),
+                share_warm=b["bound_ms"] / float(np.mean(warm[name])),
+                share_cold=b["bound_ms"] / float(np.mean(cold[name])),
+                grid=grid, **({"blocks_per_sm": per} if k <= 1 else
+                              {"clusters": per}),
+                busy_sms=sms if k <= 1 else min(grid, sms),
+                runs=warm[name], cold_runs=cold[name])
+        rec["torch_take"] = dict(ms=float(np.mean(warm["torch_take"])),
+                                 cold_ms=float(np.mean(cold["torch_take"])))
+        rec["fastest_cold"] = min((n for n in rec if n in fns
+                                   and n != "torch_take"),
+                                  key=lambda n: rec[n]["cold_ms"])
+        log(json.dumps(rec))
+        out[p] = rec
+    return out
+
+
+def p2_chain(gpu: str) -> dict:
+    """P2: each kind bit for bit against the plain version at PLAIN_STEPS
+    and against the first port's kernel at STEPS (its SHA-256), then the
+    chain floor's terms and each kind's floor."""
     from project3_cuda_path_tracer_tpu_torch.tools import \
         exp_extract_cost as P2
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
-    for side in P1.SIDES:
-        table, _, idx = P1.inputs(side)
-        got, want = P1.gather(table, idx), P1.gather_plain(table, idx)
-        torch.cuda.synchronize()
-        equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
-        log(json.dumps(dict(check=f"P1 gather P={side * side}",
-                            fetches=idx.numel(), bitwise=equal)))
-        if not equal:
-            raise AssertionError(f"P1 kernel differs at P={side * side}")
+    table, state = P2.inputs()
     errs = {}
     for kind in P2.KINDS:
-        table, state = P2.inputs()
         got = P2.extract_cost(table, state, kind, P2.PLAIN_STEPS)
         want = P2.extract_cost_plain(table, state, kind, P2.PLAIN_STEPS)
+        full = P2.extract_cost(table, state, kind, P2.STEPS)
         torch.cuda.synchronize()
         errs[kind] = float((got - want).abs().max())
         equal = torch.equal(got, want)
+        same = P2.sha256(full) == P2.SHA256_STEPS[kind]
         log(json.dumps(dict(check=f"P2 {kind} {P2.PLAIN_STEPS} steps",
-                            bitwise=equal, max_abs_err=errs[kind])))
-        if not equal:
-            raise AssertionError(f"P2 {kind}: kernel differs from plain")
+                            bitwise=equal, max_abs_err=errs[kind],
+                            first_kernel_at_steps=P2.STEPS,
+                            first_kernel_bitwise=same)))
+        if not (equal and same):
+            raise AssertionError(f"P2 {kind}: kernel differs from the plain "
+                                 "version or the first kernel")
+    terms = P2.chain_terms(table)
+    floors = {k: P2.chain_floor_ns(terms, k) for k in P2.KINDS}
+    log(json.dumps(dict(metric="P2_chain_floor_ns_per_step", **terms,
+                        floor_ns=floors, gpu=gpu)))
+    return dict(errs=errs, terms=terms, floors=floors)
+
+
+def probe_phases(gpu: str) -> list:
+    """P1 and P2: each instance and kind bit for bit, P1's sizes timed warm
+    and cold, P2's chain floor, then each probe's entry point (its main())
+    with the counts at 0 before and read after. Returns their `kernels`
+    entries."""
+    from project3_cuda_path_tracer_tpu_torch.tools import \
+        exp_extract_cost as P2
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    sizes = p1_sizes(gpu)
+    chain = p2_chain(gpu)
 
     out = {}
     for name, mod in (("gather", P1), ("extract_cost", P2)):
@@ -1452,12 +1532,15 @@ def probe_phases(gpu: str) -> list:
     # once. P2 (extract48 at PLAIN_STEPS, the entry's `ms`): per step the
     # whole [16,128] state folds 48 scalars (an FMA each) and 128 lanes are
     # summed; it reads the rows it visits and the state, writes the state.
+    # Its chain floor: PLAIN_STEPS x extract48's floor a step.
     b1 = bound(P1.N * 8 + big * 4, 0)
     steps = P2.PLAIN_STEPS
     b2 = bound(steps * P2.ROW * 4 + 2 * P2.SUB * P2.LANES * 4,
                steps * (P2.SUB * P2.LANES * 48 * 2 + P2.LANES - 1))
+    floor2 = steps * chain["floors"]["extract48"] * 1e-6
     for name, b in (("P1", b1), ("P2", b2)):
         log(json.dumps(dict(metric=f"{name}_bound", **b, gpu=gpu)))
+    pick = sizes[big][sizes[big]["pick"]]
     return [
         dict(name="texel gather (P1)", route="cuda",
              source=f"{PKG}/csrc/gather.cu",
@@ -1465,13 +1548,22 @@ def probe_phases(gpu: str) -> list:
              max_abs_err=0.0, ms=by[("cuda_gather_u32", big)]["ms"],
              plain_ms=by[("plain_index_u32", big)]["ms"],
              bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
-             library_ms=by[("torch_take_u32", big)]["ms"]),
+             library_ms=by[("torch_take_u32", big)]["ms"],
+             instance=sizes[big]["pick"], cold_ms=pick["cold_ms"],
+             library_cold_ms=sizes[big]["torch_take"]["cold_ms"],
+             ms_by_texels={p: dict(pick=r["pick"], ms=r[r["pick"]]["ms"],
+                                   cold_ms=r[r["pick"]]["cold_ms"],
+                                   bound_ms=r["bound_ms"])
+                           for p, r in sizes.items()}),
         dict(name="dependent-load chain (P2)", route="cuda",
              source=f"{PKG}/csrc/extract_cost.cu",
              replaces="tools/exp_extract_cost.py:61", launches=p2_launches,
-             max_abs_err=max(errs.values()), ms=e48["ms"],
+             max_abs_err=max(chain["errs"].values()), ms=e48["ms"],
              plain_ms=e48["plain_ms"], bound_ms=b2["bound_ms"],
-             bound_by=b2["bound_by"], library_ms=None)]
+             bound_by=b2["bound_by"], library_ms=None,
+             chain_floor_ms=floor2, share_of_floor=floor2 / e48["ms"],
+             ns_per_step={r["kind"]: r["ns_per_step"] for r in recs},
+             chain_floor_ns_per_step=chain["floors"])]
 
 
 def main() -> int:

@@ -6,45 +6,336 @@
 // how the TPU feeds its per-lane gather; the function computed is
 // flat_table[idx]. Here the kernel takes the flat [P] table.
 //
-// What bounds it on this card: memory traffic. Each fetch reads a 4-byte
-// index and writes a 4-byte texel, both coalesced; the table (64 KB or
-// 256 KB for the probe's 128x128 and 256x256 atlases) stays in L1/L2, so
-// the random reads hit cache and the stream of indices and outputs through
-// device memory is the cost. One thread per index, read through the
-// read-only path (__ldg). An index outside [0, P) reads 0 rather than
-// memory outside the table (the plain version raises there).
+// What bounds it on this card: memory traffic. The call must read n 4-byte
+// indices and write n 4-byte texels (32 MB for the probe's 4M fetches); the
+// table is small beside that. What costs beyond it is the random table
+// read: a 4-byte read that misses L1 moves a 32-byte L2 sector, so a table
+// that outgrows L1 (256 KB, shared with shared memory) turns 4M reads into
+// ~134 MB of L2 traffic. The design stages the table in shared memory
+// where it fits:
+//   - K = 1 (`block`): each block of a persistent grid stages the whole
+//     table in its dynamic shared memory with 1-D TMA bulk copies
+//     (cp.async.bulk, completed on an mbarrier) and reads it from there;
+//   - K = 2 or 4 (`cluster`): a thread block cluster of K blocks holds the
+//     table in K slices, one a block, and a lane reads the slice that holds
+//     its index through distributed shared memory (mapa +
+//     ld.shared::cluster), its own slice through the local path. One
+//     table load feeds the cluster;
+//   - K = 0 (`l2`): no staging, the table read through the read-only path
+//     (__ldg).
+// Every instance streams the indices in and the texels out 16 bytes a
+// thread (int4 / uint4, evict-first), each thread keeping GROUPS groups in
+// flight and as many requested ahead, one block of 1024 threads an SM. An
+// index pointer that is not 16-byte aligned (a view at an offset) and the
+// ragged tail (n not a multiple of 4) take scalar code. The index loads of the first groups are
+// issued before the block waits for its table. An index outside [0, P)
+// reads 0 (the plain version raises there).
+//
+// The wrapper (tools/exp_gather.py) picks K from the table's size alone,
+// before the launch: `block` while one block's shared memory holds the
+// table, `l2` above. On an H100 a lane's random 4-byte read of a
+// neighbour's slice costs more than an L2 read, so the cluster instances
+// lost their A/B to `l2` at 256 KB and 512 KB and serve the A/B only
+// (PERF.md). `gather_plan` sizes the persistent grid
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, or
+// cudaOccupancyMaxActiveClusters for a cluster).
 //
 // Interface (plain C, bound with ctypes by tools/exp_gather.py):
-//   table [P] u32; idx [n] i32; out [n] u32. Returns cudaGetLastError()
-//   after the launch.
+//   gather_plan(k, table_size, out[2]) -> grid, and blocks per SM (k <= 1)
+//     or active clusters (k >= 2) in out;
+//   gather_launch(k, grid, table [P] u32, P, table_aligned, idx [n] i32,
+//     out [n] u32, n, idx_aligned, stream).
+// Both return a cudaError_t (cudaGetLastError() after the launch).
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 1024;
+// int4 index groups a thread stores per turn: four where the table is in
+// shared memory, one where the table reads are random L2 reads (more of
+// them in flight queue behind each other: measured on an H100).
+template <int K>
+constexpr int GROUPS = K == 0 ? 1 : 4;
+// Bytes of table one block holds (tools/exp_gather.SLICE_BYTES).
+constexpr int SLICE_MAX = 200 * 1024;
+constexpr uint32_t CHUNK_WORDS = 8192;  // 32 KB per bulk copy
 
+// Words of the slice each block of a K-block cluster holds: the table
+// split K ways, rounded up to 16 bytes so that every slice's start is as
+// aligned as the table for the bulk copy.
+__host__ __device__ inline uint32_t slice_words(uint32_t size, int k) {
+  const uint32_t w = (size + k - 1) / k;
+  return (w + 3u) & ~3u;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Stage `words` words from `src` into `dst` (shared): thread 0 issues bulk
+// copies for the 16-byte part when `bulk`, every thread copies the rest
+// plainly. The bulk part has landed once `bar` completes phase 0.
+__device__ void stage(const uint32_t* src, uint32_t words, bool bulk,
+                      uint32_t* dst, uint64_t* bar) {
+  const uint32_t bar_a = smem_addr(bar);
+  const uint32_t bulk_words = bulk ? (words & ~3u) : 0u;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar_a),
+        "r"(bulk_words * 4u)
+        : "memory");
+    for (uint32_t w = 0; w < bulk_words; w += CHUNK_WORDS) {
+      const uint32_t len =
+          (bulk_words - w < CHUNK_WORDS ? bulk_words - w : CHUNK_WORDS) * 4u;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + w)),
+          "l"(src + w), "r"(len), "r"(bar_a)
+          : "memory");
+    }
+  }
+  for (uint32_t w = bulk_words + threadIdx.x; w < words; w += THREADS)
+    dst[w] = __ldg(src + w);
+}
+
+__device__ __forceinline__ void wait_phase0(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The table as a K instance reads it.
+template <int K>
+struct Table {
+  const uint32_t* g;      // K = 0
+  const uint32_t* s;      // K >= 1: this block's copy or slice
+  uint32_t base[K > 1 ? K : 1];  // K > 1: each rank's slice, shared::cluster
+  uint32_t size, slice, rank;
+
+  __device__ __forceinline__ uint32_t operator()(int32_t j) const {
+    const uint32_t u = static_cast<uint32_t>(j);
+    if (u >= size) return 0u;
+    if (K == 0) return __ldg(g + u);
+    if (K == 1) return s[u];
+    uint32_t r = 0, addr = base[0], off = u;
+#pragma unroll
+    for (int q = 1; q < K; ++q) {
+      if (u >= q * slice) {
+        r = q;
+        addr = base[q];
+        off = u - q * slice;
+      }
+    }
+    // This block's own slice through the local path, a neighbour's
+    // through distributed shared memory.
+    return r == rank ? s[off] : ld_cluster(addr + 4u * off);
+  }
+};
+
+template <int K>
+__device__ __forceinline__ uint4 fetch4(const Table<K>& t, int4 j) {
+  return make_uint4(t(j.x), t(j.y), t(j.z), t(j.w));
+}
+
+template <int K>
 __global__ void __launch_bounds__(THREADS)
-    gather_kernel(const uint32_t* __restrict__ table, int table_size,
-                  const int32_t* __restrict__ idx,
-                  uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int32_t j = __ldg(idx + i);
-  out[i] = (j >= 0 && j < table_size) ? __ldg(table + j) : 0u;
+    gather_kernel(const uint32_t* __restrict__ table, uint32_t size,
+                  int table_aligned, const int32_t* __restrict__ idx,
+                  uint32_t* __restrict__ out, long long n, int idx_aligned) {
+  extern __shared__ __align__(16) uint32_t tab_s[];
+  __shared__ __align__(8) uint64_t bar;
+  Table<K> t;
+  t.g = table;
+  t.s = tab_s;
+  t.size = size;
+  t.slice = K > 1 ? slice_words(size, K) : size;
+  t.rank = K > 1 ? cg::this_cluster().block_rank() : 0u;
+  if (K > 0) {
+    const uint32_t lo = t.rank * t.slice;
+    const uint32_t words =
+        lo < size ? (size - lo < t.slice ? size - lo : t.slice) : 0u;
+    stage(table + lo, words, table_aligned != 0, tab_s, &bar);
+    if (K > 1) {
+#pragma unroll
+      for (int q = 0; q < (K > 1 ? K : 1); ++q) {
+        uint32_t a;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                     : "=r"(a)
+                     : "r"(smem_addr(tab_s)), "r"(q));
+        t.base[q] = a;
+      }
+    }
+  }
+
+  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  const long long step = GROUPS<K> * stride;
+  const long long n4 = idx_aligned ? n >> 2 : 0;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+
+  int4 cur[GROUPS<K>];
+#pragma unroll
+  for (int u = 0; u < GROUPS<K>; ++u) {
+    const long long gi = tid + u * stride;
+    cur[u] = gi < n4 ? __ldcs(idx4 + gi) : make_int4(0, 0, 0, 0);
+  }
+  if (K > 0) {
+    wait_phase0(&bar);
+    if (K == 1)
+      __syncthreads();  // the plainly copied tail words
+    else
+      cg::this_cluster().sync();  // every slice of the cluster has landed
+  }
+
+  for (long long g = tid; g < n4; g += step) {
+    int4 nxt[GROUPS<K>];
+#pragma unroll
+    for (int u = 0; u < GROUPS<K>; ++u) {
+      const long long gi = g + step + u * stride;
+      nxt[u] = gi < n4 ? __ldcs(idx4 + gi) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < GROUPS<K>; ++u) {
+      const long long gi = g + u * stride;
+      if (gi < n4) __stcs(out4 + gi, fetch4(t, cur[u]));
+      cur[u] = nxt[u];
+    }
+  }
+  // The ragged tail, or every index when the pointer is not 16-byte
+  // aligned.
+  for (long long i = n4 * 4 + tid; i < n; i += stride)
+    __stcs(out + i, t(__ldcs(idx + i)));
+
+  if (K > 1) cg::this_cluster().sync();  // neighbours may still read us
+}
+
+typedef void (*KernelFn)(const uint32_t*, uint32_t, int, const int32_t*,
+                         uint32_t*, long long, int);
+
+KernelFn kernel_for(int k) {
+  switch (k) {
+    case 0: return gather_kernel<0>;
+    case 1: return gather_kernel<1>;
+    case 2: return gather_kernel<2>;
+    case 4: return gather_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+size_t smem_bytes(int k, uint32_t size) {
+  return k == 0 ? 0 : size_t(slice_words(size, k)) * 4;
+}
+
+void fill_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int k,
+                 int grid, size_t smem, cudaStream_t stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  if (k > 1) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = k;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+  }
 }
 
 }  // namespace
 
-extern "C" int gather_u32(const uint32_t* table, int table_size,
-                          const int32_t* idx, uint32_t* out, long long n,
-                          void* stream) {
-  if (n <= 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  gather_kernel<<<(unsigned)blocks, THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(table, table_size,
-                                                       idx, out, n);
+extern "C" int gather_plan(int k, int table_size, int* out) {
+  KernelFn fn = kernel_for(k);
+  if (fn == nullptr || table_size <= 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(k, table_size);
+  if (smem > SLICE_MAX) return cudaErrorInvalidValue;
+  cudaError_t rc = cudaSuccess;
+  if (k > 0 && (rc = cudaFuncSetAttribute(
+                    fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                    SLICE_MAX)) != cudaSuccess)
+    return rc;
+  int dev = 0, sms = 0;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev)) != cudaSuccess)
+    return rc;
+  if (k <= 1) {
+    int per_sm = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                       smem);
+    if (rc != cudaSuccess) return rc;
+    // One block an SM: a second one measured slower on an H100 (a second
+    // table copy to stage; more random reads in flight for K = 0).
+    if (per_sm > 1) per_sm = 1;
+    out[0] = per_sm * sms;
+    out[1] = per_sm;
+  } else {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    fill_config(&cfg, &attr, k, k * (sms / k), smem, nullptr);
+    int clusters = 0;
+    rc = cudaOccupancyMaxActiveClusters(&clusters, (void*)fn, &cfg);
+    if (rc != cudaSuccess) return rc;
+    out[0] = clusters * k;
+    out[1] = clusters;
+  }
+  return out[0] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+extern "C" int gather_launch(int k, int grid, const uint32_t* table,
+                             int table_size, int table_aligned,
+                             const int32_t* idx, uint32_t* out, long long n,
+                             int idx_aligned, void* stream) {
+  KernelFn fn = kernel_for(k);
+  if (fn == nullptr || table_size <= 0 || grid <= 0 || grid % (k > 1 ? k : 1))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(k, table_size);
+  if (smem > SLICE_MAX) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  // No more blocks than the work needs (a multiple of the cluster size).
+  const long long units = idx_aligned ? (n >> 2) + (n & 3) : n;
+  long long blocks = (units + THREADS - 1) / THREADS;
+  const int kk = k > 1 ? k : 1;
+  blocks = (blocks + kk - 1) / kk * kk;
+  if (blocks > grid) blocks = grid;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill_config(&cfg, &attr, k, (int)blocks, smem,
+              static_cast<cudaStream_t>(stream));
+  cudaError_t rc =
+      cudaLaunchKernelEx(&cfg, fn, table, (uint32_t)table_size,
+                         table_aligned, idx, out, n, idx_aligned);
+  if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,11 +12,16 @@ state, vector8 folds the row's [8, 9] block row-wise into the state's
 first 8 rows (csrc/extract_cost.cu states the arithmetic). It prints one
 JSON line per kind with the kernel's ns per step (CUDA events) and the
 plain version's on a shorter loop, and needs a CUDA card.
+
+`chain_terms` measures on the card what one step of the chain must take at
+least, term by term (a dependent row load, a dependent FP32 operation, a
+dependent shuffle), and `chain_floor_ns` adds them up for a kind.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import json
 
 import numpy as np
@@ -31,7 +36,19 @@ SUB = 16
 LANES = 128
 ROW = 72
 KINDS = {"extract6": 0, "extract48": 1, "vector8": 2}
+ROW0_SCALARS = {"extract6": 6, "extract48": 48, "vector8": 6}  # into row 0
 PLAIN_STEPS = 256    # the plain version's loop on the card (eager ops)
+# SHA-256 of the state's bytes after STEPS steps from `inputs()`: the
+# output of the first port's one-block kernel (commit 6e06402, through
+# tools/probe_ab.py on the card), which the plain version also gives.
+SHA256_STEPS = {
+    "extract6":
+        "599fb960535812908244f97418ea3707c188448982d8c05febbc58f658399c24",
+    "extract48":
+        "61da9583952404c0741e0eb06eb8ed2508b5d45963f8887ccaf8660cbb6d6616",
+    "vector8":
+        "d979c4dab8fad05818c38eceef1a2516cdfbadb6fbc4f0f52becd16149e5df0b",
+}
 LAUNCHES = 0
 
 
@@ -51,6 +68,9 @@ def _check(table: torch.Tensor, state: torch.Tensor, kind: str,
         raise ValueError(f"table must have shape [rows, {ROW}]")
     if table.device != state.device:
         raise ValueError("table and state must be on one device")
+    if table.device.type == "cuda" and table.data_ptr() % 16:
+        raise ValueError("the kernel reads rows as 16-byte vectors: the "
+                         "table must be 16-byte aligned")
 
 
 def _lane_sum(x: torch.Tensor) -> torch.Tensor:
@@ -96,6 +116,10 @@ def _kernel_lib() -> ctypes.CDLL:
                                      ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
+    lib.extract_cost_floor.restype = ctypes.c_int
+    lib.extract_cost_floor.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
     lib.extract_cost_error_string.restype = ctypes.c_char_p
     lib.extract_cost_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -104,8 +128,9 @@ def _kernel_lib() -> ctypes.CDLL:
 def extract_cost(table: torch.Tensor, state: torch.Tensor, kind: str,
                  steps: int) -> torch.Tensor:
     """The state after `steps` steps of the probe's loop. CPU tensors take
-    `extract_cost_plain`; CUDA tensors launch csrc/extract_cost.cu (one
-    CTA) on the current stream, counted in LAUNCHES."""
+    `extract_cost_plain`; CUDA tensors launch csrc/extract_cost.cu (61
+    warps, each deriving the row sequence itself) on the current stream,
+    counted in LAUNCHES."""
     global LAUNCHES
     _check(table, state, kind, steps)
     if table.device.type == "cpu":
@@ -124,6 +149,57 @@ def extract_cost(table: torch.Tensor, state: torch.Tensor, kind: str,
                            + lib.extract_cost_error_string(rc).decode())
     LAUNCHES += 1
     return out
+
+
+FLOOR_ENTRIES = {"chase": 0, "fold": 1, "shuffle": 2}
+
+
+def _floor_launch(which: str, table: torch.Tensor, n: int,
+                  sink: torch.Tensor) -> None:
+    """One warp of one of the chain floor's entries in csrc/extract_cost.cu:
+    `chase` n dependent row loads over `table`, `fold` n dependent folds
+    (2n FP32 operations), `shuffle` n dependent shuffles."""
+    lib = _kernel_lib()
+    with torch.cuda.device(table.device):
+        rc = lib.extract_cost_floor(FLOOR_ENTRIES[which], table.data_ptr(),
+                                    table.shape[0], n, sink.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("extract_cost_floor launch failed: "
+                           + lib.extract_cost_error_string(rc).decode())
+
+
+def chain_terms(table: torch.Tensor, steps: int = STEPS) -> dict:
+    """On the card, the latency of each term of one step of the chain, in
+    ns: `chase_ns` a dependent row load over `table` with the kernel's index
+    arithmetic (plus one shuffle and one multiply of its own), `fop_ns` a
+    dependent __fmul_rn or __fadd_rn, `shfl_ns` a dependent shuffle; from
+    chains of `steps`, 48 x `steps` folds and 8 x `steps` shuffles, timed
+    with the stream held."""
+    _check(table, torch.empty((SUB, LANES), device=table.device), "extract6",
+           steps)
+    sink = torch.empty((32,), dtype=torch.int32, device=table.device)
+    n = {"chase": steps, "fold": steps * 48, "shuffle": steps * 8}
+    ms = {k: time_ms(lambda k=k: _floor_launch(k, table, n[k], sink), 5)
+          for k in n}
+    return {"chase_ns": ms["chase"] * 1e6 / n["chase"],
+            "fop_ns": ms["fold"] * 1e6 / (2 * n["fold"]),
+            "shfl_ns": ms["shuffle"] * 1e6 / n["shuffle"]}
+
+
+def chain_floor_ns(terms: dict, kind: str) -> float:
+    """The least ns a step of `kind` can take on its chain: one dependent row
+    load with the index arithmetic (the chase, less its own multiply and
+    shuffle), 2K dependent FP32 operations folding K scalars into row 0,
+    the sum's 2 register adds, and its 5 shuffles."""
+    k = ROW0_SCALARS[kind]
+    return (terms["chase_ns"] + (2 * k + 2 - 1) * terms["fop_ns"]
+            + (5 - 1) * terms["shfl_ns"])
+
+
+def sha256(state: torch.Tensor) -> str:
+    """SHA-256 of a state's float32 bytes (compare with SHA256_STEPS)."""
+    return hashlib.sha256(state.detach().cpu().numpy().tobytes()).hexdigest()
 
 
 def inputs(rows: int = ROWS, seed: int = 0, device="cuda"):

@@ -64,3 +64,28 @@ def time_ms(fn, iters: int, warm: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+FLUSH_BYTES = 128 << 20  # more than the 50 MB L2 of an H100
+
+
+def time_cold_ms(fn, reps: int, flush_bytes: int = FLUSH_BYTES) -> list:
+    """Device ms of each of `reps` calls of `fn`, each made after writing a
+    `flush_bytes` buffer (so that what the call reads comes from device
+    memory, not L2), with CUDA events around the call alone. The stream is
+    held while the host enqueues, as in `time_ms`."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for rep in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES // 10)
+        flush.fill_(rep)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]

@@ -256,6 +256,81 @@ def test_probe_kernels_match_plain_on_card(probe):
                                P2.extract_cost_plain(table, state, kind, 64))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("texels", [128 * 128, 256 * 256, 512 * 256])
+def test_gather_instances_equal_plain_on_card(texels):
+    """Every instance that can hold the table (block, cluster of 2 or 4,
+    L2) and the wrapper's pick equal `gather_plain` bit for bit, 1M
+    indices."""
+    _need_card()
+    table, _, idx = P1.inputs((texels, 1), n=1 << 20)
+    want = P1.gather_plain(table, idx).view(torch.int32)
+    fits = [k for k in P1.INSTANCES
+            if P1.slice_bytes(texels, k) <= P1.SLICE_BYTES]
+    assert P1.instance_for(texels * 4) in fits
+    for k in fits:
+        got = P1._gather_instance(k, table, idx)
+        assert torch.equal(got.view(torch.int32), want), P1.INSTANCES[k]
+    assert torch.equal(P1.gather(table, idx).view(torch.int32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1048577, "offset",
+                               "out of range"])
+def test_gather_edges_on_card(n):
+    """Ragged counts, an index view at a 4-byte offset (scalar path) and
+    indices outside the table (they read 0), on every instance at the
+    256 KB and 512 KB sizes."""
+    _need_card()
+    for texels in (256 * 256, 512 * 256):
+        table, _, idx = P1.inputs((texels, 1), n=1 << 20, seed=3)
+        if n == "offset":
+            idx = idx[1:1 + 4099]
+            assert idx.data_ptr() % 16 == 4
+        elif n == "out of range":
+            idx = idx[:4101].clone()
+            bad = torch.tensor([-1, texels, 2 ** 31 - 1, -2 ** 31],
+                               dtype=torch.int32, device="cuda")
+            idx[::7] = bad.repeat(147)[:idx[::7].numel()]
+        else:
+            idx = idx[:n].contiguous() if n <= idx.numel() else \
+                torch.randint(0, texels, (n,), dtype=torch.int32,
+                              device="cuda")
+        inside = (idx >= 0) & (idx < texels)
+        want = torch.where(inside, P1.gather_plain(
+            table, torch.where(inside, idx, 0)).view(torch.int32), 0)
+        for k in P1.INSTANCES:
+            if P1.slice_bytes(texels, k) > P1.SLICE_BYTES:
+                continue
+            got = P1._gather_instance(k, table, idx)
+            torch.cuda.synchronize()
+            assert got.shape == idx.shape
+            assert torch.equal(got.view(torch.int32), want), \
+                (P1.INSTANCES[k], texels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [64, 256])
+def test_extract_cost_equals_plain_on_card(steps):
+    """Each kind bit for bit with the plain version on the card."""
+    _need_card()
+    table, state = P2.inputs()
+    for kind in P2.KINDS:
+        assert torch.equal(P2.extract_cost(table, state, kind, steps),
+                           P2.extract_cost_plain(table, state, kind, steps))
+
+
+@pytest.mark.cuda
+def test_extract_cost_full_loop_on_card():
+    """At the probe's 4,096 steps each kind gives the first port's kernel's
+    state, bit for bit (its SHA-256)."""
+    _need_card()
+    table, state = P2.inputs()
+    for kind in P2.KINDS:
+        got = P2.extract_cost(table, state, kind, P2.STEPS)
+        assert P2.sha256(got) == P2.SHA256_STEPS[kind], kind
+
+
 def _binary_inputs(n, dev):
     """The torus in the binary layout on `dev`, and n aimed rays of which
     some start inside its box and some are dead (t_bound -1, 0 and NaN)."""

@@ -166,3 +166,106 @@ def test_lane_sum_is_the_halving_tree():
         want = torch.stack([want[i] + want[i + h] for i in range(h)])
         h //= 2
     assert torch.equal(P2._lane_sum(x), want[0])
+
+
+@pytest.mark.parametrize("table_bytes,k", [(64 << 10, 1), (256 << 10, 0),
+                                           (512 << 10, 0), (4 << 20, 0)])
+def test_instance_is_picked_by_table_size(table_bytes, k):
+    """The probe's 64 KB and 256 KB atlases, sky.hdr's 512 KB and a 4 MB
+    table: the block instance while one block's shared memory holds the
+    table, the L2 instance above. The cluster instances that the A/B
+    holds against L2 can hold the 256 KB and 512 KB tables."""
+    assert P1.instance_for(table_bytes) == k
+    texels = table_bytes // 4
+    assert (P1.slice_bytes(texels, 1) <= P1.SLICE_BYTES) == (k == 1)
+    if table_bytes <= 512 << 10:
+        assert P1.slice_bytes(texels, 4) <= P1.SLICE_BYTES
+
+
+def test_slices_cover_the_table_on_16_byte_bounds():
+    for texels in (1, 5, 16384, 65536, 65537, 131072):
+        for k in (1, 2, 4):
+            words = P1.slice_bytes(texels, k) // 4
+            assert words % 4 == 0 and words * k >= texels
+            assert words - 4 < -(-texels // k)
+
+
+def _warp_order_sum(x: np.ndarray) -> np.float32:
+    """csrc/extract_cost.cu's row-0 sum: lane l holds columns l, l+32,
+    l+64, l+96, adds (a0 + a2) + (a1 + a3) in registers, then five xor
+    butterflies (lane l adds lane l ^ h, h = 16 ... 1); lane 0's value."""
+    a = x.reshape(4, 32)
+    s = (a[0] + a[2]) + (a[1] + a[3])
+    lanes = np.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        s = s + s[lanes ^ h]
+        assert s.dtype == np.float32
+    assert (s == s[0]).all()  # every lane holds the sum
+    return s[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warp_order_is_the_halving_tree(seed):
+    """On float32 data whose sum depends on the order of the additions
+    (signed, magnitudes from 1e-3 to 1e7), the kernel's warp order equals
+    `_lane_sum` bit for bit, where a sequential sum does not."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(128).astype(np.float32)
+         * np.float32(10.0) ** rng.integers(-3, 8, 128)).astype(np.float32)
+    tree = P2._lane_sum(torch.from_numpy(x)).numpy()
+    assert _warp_order_sum(x).view(np.int32) == tree.view(np.int32)
+    others = set()
+    for order in (x, x[::-1]):  # left to right, right to left
+        s = np.float32(0)
+        for v in order:
+            s = np.float32(s + v)
+        others.add(float(s))
+    assert others - {float(tree)}
+
+
+def test_gather_plain_matches_numpy_at_sky_size():
+    """The 512 KB sky table (131,072 texels) with 1M indices."""
+    table, _, idx = P1.inputs(P1.SKY, n=1 << 20, device="cpu")
+    assert table.numel() == 131072
+    flat = table.view(torch.int32).numpy().view(np.uint32)
+    got = P1.gather(table, idx)
+    np.testing.assert_array_equal(
+        got.view(torch.int32).numpy().view(np.uint32), flat[idx.numpy()])
+
+
+@pytest.mark.parametrize("kind", list(P2.KINDS))
+def test_extract_cost_plain_gives_the_full_loop_state(kind):
+    """The plain version at the probe's 4,096 steps gives the state whose
+    SHA-256 the card tests hold the kernel to."""
+    table, state = P2.inputs(device="cpu")
+    out = P2.extract_cost(table, state, kind, P2.STEPS)
+    assert P2.sha256(out) == P2.SHA256_STEPS[kind]
+
+
+def test_chain_floor_adds_its_terms():
+    terms = {"chase_ns": 300.0, "fop_ns": 2.0, "shfl_ns": 10.0}
+    # the chase, 2K + 1 more FP32 operations, 4 more shuffles
+    assert P2.chain_floor_ns(terms, "extract6") == 300 + 13 * 2 + 4 * 10
+    assert P2.chain_floor_ns(terms, "extract48") == 300 + 97 * 2 + 4 * 10
+    assert P2.chain_floor_ns(terms, "vector8") == \
+        P2.chain_floor_ns(terms, "extract6")
+
+
+def test_gather_instances_need_cuda_tensors():
+    table = torch.arange(10, dtype=torch.int32)
+    idx = torch.tensor([3, 1], dtype=torch.int32)
+    for k in P1.INSTANCES:
+        with pytest.raises(ValueError):
+            P1._gather_instance(k, table, idx)
+    with pytest.raises(ValueError):
+        P1._gather_instance(3, table, idx)
+    assert P1.LAUNCHES_AB == 0
+
+
+def test_probe_ab_refuses_a_baseline_without_its_entries(tmp_path):
+    from project3_cuda_path_tracer_tpu_torch.tools import probe_ab
+    csrc = tmp_path / "project3_cuda_path_tracer_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "gather.cu").write_text("extern \"C\" int other(void);\n")
+    with pytest.raises(ValueError, match="gather_u32"):
+        probe_ab.build_baseline(str(tmp_path), "gather")
