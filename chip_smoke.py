@@ -25,10 +25,20 @@ once) and drives these paths:
     finished lanes) and K4 (warp packets of live rays) held equal to the
     plain version bit for bit, step counts included, and timed in turns on
     both wavefronts and on each bounce of one `pack_all` iteration;
+  - mesh.txt with --nee: the shadow rays through K2's any-hit mode, held
+    bit for bit against its plain version on the bounce-0 and bounce-1
+    shadow wavefronts, timed beside its bound, launches counted;
   - the train step (models/inverse.py): gradients on the card against the
     CPU's at 64x64 depth 8; the history step on cornell 800x800 depth 8,
     timed, with its peak memory; InverseRenderer fitting an albedo back;
     and the mesh scene through the differentiable recompute (K2 inside);
+  - direct lighting through `Renderer` (the wavefront route): cornell and
+    scenes/lights.txt at 800x800 depth 8 with --nee, their means against
+    K1's plain render, ms and kernels per iteration, the RMSE against
+    plain sampling, the card against the CPU; scenes/manylights.txt with
+    --nee-ris 8 and --restir 8 against --nee, the reservoir reaching its
+    cap; scenes/manylights256.txt with --nee-ris 8 through the batched
+    sphere pass; the CLI with --nee;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -71,6 +81,9 @@ SCENE = os.path.join(ROOT, "scenes", "cornell.txt")
 GLASS = os.path.join(ROOT, "scenes", "cornell_glass.txt")
 GOLDEN = os.path.join(ROOT, "tests", "golden_cornell_64x64_8spp_seed123.npz")
 MESH = os.path.join(ROOT, "scenes", "mesh.txt")
+LIGHTS = os.path.join(ROOT, "scenes", "lights.txt")
+MANY = os.path.join(ROOT, "scenes", "manylights.txt")
+MANY256 = os.path.join(ROOT, "scenes", "manylights256.txt")
 MESH_GEOM = 3  # the blob's geom index in scenes/mesh.txt
 
 # Lane contract of tests/test_megakernel.py: kernel and plain version are
@@ -198,18 +211,27 @@ def sized(path: str, res: int, depth: int):
 
 
 def compare_lanes(tag: str, got: torch.Tensor, want: torch.Tensor,
-                  atol: float, frac: float) -> dict:
+                  atol: float, frac: float,
+                  exclude: torch.Tensor = None) -> dict:
+    """The lane contract between two [.., 3] images. `exclude` ([N] bool)
+    marks lanes left out of the divergent share (reported beside it)."""
     g = got.reshape(-1, 3).double().cpu().numpy()
     w = want.reshape(-1, 3).double().cpu().numpy()
     if not (np.isfinite(g).all() and np.isfinite(w).all()):
         raise AssertionError(f"{tag}: non-finite values")
     err = np.abs(g - w)
-    diverged = float((err > atol).any(axis=1).mean())
+    bad = (err > atol).any(axis=1)
+    keep = (np.ones_like(bad) if exclude is None
+            else ~exclude.reshape(-1).cpu().numpy())
+    diverged = float((bad & keep).sum() / max(keep.sum(), 1))
     mean_gap = float(np.abs(g.mean(0) - w.mean(0)).max())
     rec = dict(check=tag, lanes=int(g.shape[0]), atol=atol,
                diverged_frac=diverged, max_abs_err=float(err.max()),
                p99_abs_err=float(np.percentile(err.max(axis=1), 99)),
                mean_gap=mean_gap)
+    if exclude is not None:
+        rec.update(excluded_frac=float(1 - keep.mean()),
+                   diverged_frac_all_lanes=float(bad.mean()))
     log(json.dumps(rec))
     if diverged > frac:
         raise AssertionError(f"{tag}: {diverged:.4f} of lanes diverge "
@@ -741,8 +763,8 @@ def mesh_phases(outdir: str, gpu: str) -> list:
     small.camera.derive()
     got = Renderer(small, device="cuda").render(1).clone()
     kernel_traverse8 = P8.traverse8
-    P8.traverse8 = lambda qo, qd, packed, t_bound=None: \
-        P8.traverse8_plain(qo, qd, packed, t_bound)[:5]
+    P8.traverse8 = lambda qo, qd, packed, t_bound=None, any_hit=False: \
+        P8.traverse8_plain(qo, qd, packed, t_bound, any_hit)[:5]
     try:
         want = Renderer(small, device="cuda").render(1).clone()
     finally:
@@ -766,6 +788,9 @@ def mesh_phases(outdir: str, gpu: str) -> list:
     # ---- 8c. the train step on the mesh scene ------------------------------
     mesh_train(scene)
 
+    # ---- 8e. the mesh path with NEE: K2's any-hit mode -----------------------
+    any_hit = mesh_nee(scene, gpu)
+
     # ---- 8d. timing ---------------------------------------------------------
     runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=1)]
     log(json.dumps(dict(metric="mesh_ms_per_iteration",
@@ -788,7 +813,8 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                     bound_ms=bounds[("K2", "bounce-0")]["bound_ms"],
                     bound_by=bounds[("K2", "bounce-0")]["bound_by"],
                     library_ms=None, grid_ms=k2[("grid", "bounce-0")][0],
-                    unheld_ms=k2[("persistent", "bounce-0")][1])]
+                    unheld_ms=k2[("persistent", "bounce-0")][1],
+                    **any_hit)]
     for name, replaces, launches, inst in (
             ("binary traversal (K3)", "pallas_bvh.py:128", k3_launches,
              "K3 grid"),
@@ -809,6 +835,329 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                             bounce1_bound_ms=b1["bound_ms"]))
     entries[1]["persistent_ms"] = k34[("K3 persistent", "bounce-0")][0]
     return entries
+
+
+def mesh_nee(scene, gpu: str) -> dict:
+    """mesh.txt 1024x1024 depth 8 with --nee (stratified) through
+    `Renderer`: one iteration with the counts set to 0 just before it,
+    whose K2 any-hit launches (the shadow rays; one a bounce but the last)
+    are captured by wrapping bvh8.traverse8; K2 any-hit held bit for bit
+    against traverse8_plain(any_hit=True) on the bounce-0 and bounce-1
+    shadow wavefronts, timed with the stream held, and its bound from the
+    tree rows those walks read; the iteration's ms and kernels. Returns
+    the K2 entry's any-hit keys."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    nee = dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, nee=True, stratified=True))
+    r = Renderer(nee, device="cuda")
+    if r.route != "wavefront" or not r.cfg.nee:
+        raise AssertionError(f"mesh --nee: route {r.route}, nee {r.cfg.nee}")
+    p8 = r.packed_meshes[0]
+    kernel, shadows = P8.traverse8, []
+
+    def capture(qo, qd, packed, t_bound=None, any_hit=False, **kwargs):
+        if any_hit:
+            shadows.append((tuple(c.clone() for c in qo),
+                            tuple(c.clone() for c in qd), t_bound.clone()))
+        return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
+                      **kwargs)
+
+    mk.LAUNCHES = P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = 0
+    P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
+    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
+    P8.traverse8 = capture
+    try:
+        r.step()
+    finally:
+        P8.traverse8 = kernel
+    torch.cuda.synchronize()
+    depth = r.cfg.trace_depth
+    counts = dict(k2=P8.LAUNCHES, k2_any_hit=P8.LAUNCHES_ANY_HIT,
+                  k1=mk.LAUNCHES, k2_grid=P8.LAUNCHES_GRID,
+                  k2_tiny=P8.LAUNCHES_TINY,
+                  k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT
+                  + PB.LAUNCHES_SUB)
+    log(json.dumps(dict(phase="mesh nee path", scene="scenes/mesh.txt",
+                        flags="--nee --stratified", depth=depth,
+                        iterations=1, **counts)))
+    if (counts["k2_any_hit"] != depth - 1 or counts["k2"] != 2 * depth - 1
+            or len(shadows) != depth - 1
+            or any(counts[k] for k in ("k1", "k2_grid", "k2_tiny",
+                                       "k3_k4"))):
+        raise AssertionError(f"mesh --nee launches {counts} (want {depth} "
+                             f"nearest and {depth - 1} any-hit K2 launches,"
+                             " nothing else)")
+    img = r.accum.cpu().numpy()
+    if not np.isfinite(img).all() or (img < 0).any() or img.mean() <= 0:
+        raise AssertionError("mesh --nee image is not finite and > 0")
+
+    out = {}
+    for b in (0, 1):
+        qo, qd, tb = shadows[b]
+        tag = f"bounce-{b} shadow"
+        k = P8.traverse8(qo, qd, p8, t_bound=tb, any_hit=True,
+                         return_pops=True)
+        t0 = time.perf_counter()
+        p = P8.traverse8_plain(qo, qd, p8, t_bound=tb, any_hit=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = same_bits(k, p)
+        n = int(tb.numel())
+        live = tb > 0
+        lo, ld = tuple(c[live] for c in qo), tuple(c[live] for c in qd)
+        rd = tree_reads(lambda pk: P8.traverse8_plain(
+            lo, ld, pk, tb[live], any_hit=True), p8, "nodes")
+        n_dead = n - int(live.sum())
+        bd = bound((n - n_dead) * (7 + 7) * 4 + n_dead * (1 + 7) * 4
+                   + rd["node_rows"] * NODE8_BYTES
+                   + rd["tri_rows"] * TRI_TEST_BYTES
+                   + rd["hit_tris"] * TRI_HIT_BYTES,
+                   rd["node_visits"] * 8 * BOX_OPS
+                   + rd["tri_tests"] * TRI_OPS)
+        held = [device_ms(lambda: P8._launch("persistent", qo, qd, p8, tb,
+                                             any_hit=True), 20, warm=3)
+                for _ in range(2)]
+        ms = float(np.mean(held))
+        rec = dict(metric="K2_any_hit_ms", wavefront=tag, rays=n,
+                   dead_lanes=n_dead, occluded=int((k[4] >= 0).sum()),
+                   bitwise=equal, value=ms, runs=held, plain_ms=plain_ms,
+                   mean_pops_per_ray=float(k[5].float().mean()),
+                   max_pops=int(k[5].max()),
+                   one_thread_per_ray_utilisation=lane_utilisation(k[5]),
+                   **bd, **rd, share_of_bound=bd["bound_ms"] / ms, gpu=gpu)
+        log(json.dumps(rec))
+        if not equal:
+            raise AssertionError(f"K2 any-hit {tag}: differs from "
+                                 "traverse8_plain(any_hit=True)")
+        out[b] = rec
+    runs = [time_ms(r.step, 3, warm=1), time_ms(r.step, 3, warm=0)]
+    prof = profile_one(r.step)
+    log(json.dumps(dict(metric="mesh_nee_ms_per_iteration",
+                        value=float(np.mean(runs)), runs=runs,
+                        config="mesh.txt 1024x1024 depth 8 --nee "
+                               "--stratified", gpu=gpu, **prof)))
+    return dict(any_hit_ms=out[0]["value"],
+                any_hit_bound_ms=out[0]["bound_ms"],
+                any_hit_bound_by=out[0]["bound_by"],
+                any_hit_plain_ms=out[0]["plain_ms"],
+                any_hit_launches=counts["k2_any_hit"],
+                any_hit_bounce1_ms=out[1]["value"],
+                any_hit_bounce1_bound_ms=out[1]["bound_ms"])
+
+
+def nee_scene(path: str, res: int, depth: int, **settings):
+    """`sized` with RenderSettings fields set (nee, nee_ris, restir, ...)."""
+    scene = sized(path, res, depth)
+    for k, v in settings.items():
+        setattr(scene.settings, k, v)
+    return scene
+
+
+def channel_means(r, steps: int, keep_at: int = 0):
+    """Step `r` `steps` times: the image's channel means of each step
+    [steps, 3], and a copy of the accumulator after `keep_at` steps."""
+    out, kept = [], None
+    for i in range(steps):
+        before = r.accum.double().mean(dim=(0, 1))
+        r.step()
+        out.append(r.accum.double().mean(dim=(0, 1)) - before)
+        if i + 1 == keep_at:
+            kept = r.accum.clone()
+    return torch.stack(out).cpu().numpy(), kept
+
+
+# The NEE image's channel means against K1's plain ones at 16 spp, on
+# 800x800: both estimate the same transport at equal depth, and the
+# standard error of a 16-spp mean over 640,000 pixels is a few 0.01% of it,
+# so 1% leaves a wide margin for noise while a missing MIS weight or light
+# (10% and more) fails.
+NEE_MEAN_REL = 0.01
+# The largest share of lanes on which the card and the CPU may disagree
+# which shadow rays started inside a wall (F3, `f3_lanes`).
+F3_FLIPS = 0.1
+# RIS and ReSTIR image means against plain NEE's at equal spp (the JAX
+# tests/test_ris.py:38 tolerance).
+RIS_MEAN_ABS = 0.015
+
+
+def nee_room(name: str, path: str, outdir: str, gpu: str) -> dict:
+    """A primitive room at 800x800 depth 8 with --nee (stratified) through
+    `Renderer`: the route, K1 held at 0 launches (NEE never renders through
+    the megakernel), the channel means at 16 spp against K1's plain render,
+    ms and kernels per iteration, the RMSE of the first 8 spp of each
+    against a 1,024-spp K1 reference, and the card against the CPU at
+    64x64 depth 8."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    mk.LAUNCHES = mk.LAUNCHES_GRID = P8.LAUNCHES = 0
+    r = Renderer(nee_scene(path, 800, 8, nee=True, stratified=True),
+                 device="cuda")
+    per_it, nee8 = channel_means(r, 16, keep_at=8)
+    torch.cuda.synchronize()
+    counts = dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES)
+    if r.route != "wavefront" or not r.cfg.nee or any(counts.values()):
+        raise AssertionError(f"{name} --nee: route {r.route}, nee "
+                             f"{r.cfg.nee}, launches {counts}")
+    png = r.save(os.path.join(outdir, f"{name}_nee_800x800_16spp"))
+    mk.LAUNCHES = 0
+    plain = Renderer(sized(path, 800, 8), device="cuda")
+    plain_it, plain8 = channel_means(plain, 16, keep_at=8)
+    if plain.route != "megakernel" or mk.LAUNCHES != 16:
+        raise AssertionError(f"{name} plain: route {plain.route}, "
+                             f"{mk.LAUNCHES} K1 launches")
+    nee_m, plain_m = per_it.mean(0), plain_it.mean(0)
+    rel = np.abs(nee_m - plain_m) / plain_m
+    se = np.hypot(per_it.std(0), plain_it.std(0)) / 4.0
+    rec = dict(check=f"{name} --nee 800x800 d8 16spp mean vs K1 plain",
+               route=r.route, launches=counts, nee=nee_m.tolist(),
+               plain=plain_m.tolist(), rel_gap=rel.tolist(),
+               se_gap=se.tolist(), limit_rel=NEE_MEAN_REL, png=png)
+    log(json.dumps(rec))
+    if not np.isfinite(per_it).all() or (rel > NEE_MEAN_REL).any():
+        raise AssertionError(f"{name} --nee mean {nee_m} vs plain {plain_m}")
+
+    # RMSE of the first 8 spp of each against a 1,024-spp K1 reference
+    # (another seed)
+    ref = Renderer(nee_scene(path, 800, 8, seed=99), device="cuda")
+    ref.render(1024)
+    truth = ref.accum / 1024
+    e_nee, e_plain = (float(((a / 8 - truth) ** 2).mean().sqrt())
+                      for a in (nee8, plain8))
+    runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=0)]
+    prof = profile_one(r.step)
+    out = dict(metric=f"{name}_nee_ms_per_iteration",
+               value=float(np.mean(runs)), runs=runs,
+               config=f"{name}.txt 800x800 depth 8 --nee --stratified",
+               rmse_8spp_nee=e_nee, rmse_8spp_plain=e_plain,
+               rmse_ratio=e_nee / e_plain, reference="K1 1024 spp, seed 99",
+               gpu=gpu, **prof)
+    log(json.dumps(out))
+
+    # Lanes where the two runs disagree which shadow rays started inside a
+    # wall are F3's (`f3_lanes`), left out of the divergent share; at most
+    # F3_FLIPS of them.
+    small, f3 = [], []
+    for dev in ("cuda", "cpu"):
+        rs = Renderer(nee_scene(path, 64, 8, nee=True, stratified=True),
+                      device=dev)
+        with f3_lanes() as flags:
+            small.append(rs.render(1).cpu())
+        f3.append(torch.stack(flags))
+    flips = (f3[0] != f3[1]).any(dim=0)
+    rec = compare_lanes(f"{name} --nee 64x64 d8: card vs CPU", small[0],
+                        small[1], ATOL, FRAC, exclude=flips)
+    if rec["excluded_frac"] > F3_FLIPS:
+        raise AssertionError(f"{name}: {rec['excluded_frac']} of lanes "
+                             "flip a shadow ray's start inside a wall")
+    return out
+
+
+@contextlib.contextmanager
+def f3_lanes():
+    """Collects, while the integrator runs, one [N] bool tensor a shadow
+    pass marking the live path slots whose shadow ray started inside a solid
+    (it met a surface from within, less than 1e-3 from its origin). That is
+    ROADMAP's F3: the back-off of 1e-4 object units is about one float32
+    step of an object-space distance to cornell's 0.01-thick walls, so the
+    hit point lands on either side of its wall by an ulp of rounding, which
+    the card and the CPU (their rsqrt, sin, cos) need not share."""
+    from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
+    real, flags = wf.intersect_planar, []
+
+    def spy(*args, **kwargs):
+        hit = real(*args, **kwargs)
+        if kwargs.get("any_hit"):
+            flags.append(((hit.t > 0) & (hit.t < 1e-3) & ~hit.outside
+                          & kwargs["alive"]).cpu())
+        return hit
+    wf.intersect_planar = spy
+    try:
+        yield flags
+    finally:
+        wf.intersect_planar = real
+
+
+def nee_phases(outdir: str, gpu: str) -> None:
+    """Direct lighting on the card: cornell and lights.txt with --nee
+    (`nee_room`); manylights.txt 800x800 depth 5 with --nee-ris 8 and
+    --restir 8 against --nee (image means, ms per iteration, the
+    reservoir's M reaching its cap); manylights256.txt with --nee-ris 8
+    through the batched sphere pass (ms and kernels per iteration); the CLI
+    with --nee on cornell."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    for name, path in (("cornell", SCENE), ("lights", LIGHTS)):
+        nee_room(name, path, outdir, gpu)
+
+    spp = 20
+    imgs, rs = {}, {}
+    for mode, kw in (("nee", dict(nee=True)),
+                     ("nee-ris 8", dict(nee=True, nee_ris=8)),
+                     ("restir 8", dict(restir=8))):
+        r = Renderer(nee_scene(MANY, 800, 5, seed=3, **kw), device="cuda")
+        if r.route != "wavefront" or not r.cfg.nee \
+                or len(r.cfg.sphere_batch) != 12:
+            raise AssertionError(f"manylights {mode}: {r.cfg}")
+        r.render(spp)
+        imgs[mode], rs[mode] = r.image(), r
+    m = rs["restir 8"].reservoir["M"]
+    cap = rs["restir 8"].cfg.restir_cap * 8
+    rec = dict(check="manylights 800x800 d5 20spp: RIS and ReSTIR vs NEE",
+               means={k: float(v.mean()) for k, v in imgs.items()},
+               limit_abs=RIS_MEAN_ABS, reservoir_m_max=float(m.max()),
+               reservoir_cap=cap,
+               reservoir_at_cap_share=float((m == cap).float().mean()))
+    for mode in ("nee-ris 8", "restir 8"):
+        rs_mode = rs[mode]
+        runs = [time_ms(rs_mode.step, 3, warm=1),
+                time_ms(rs_mode.step, 3, warm=0)]
+        rec[f"{mode} ms_per_iteration"] = float(np.mean(runs))
+        rec[f"{mode} runs"] = runs
+    runs = [time_ms(rs["nee"].step, 3, warm=1)]
+    rec["nee ms_per_iteration"] = runs[0]
+    log(json.dumps(dict(rec, gpu=gpu)))
+    for mode in ("nee-ris 8", "restir 8"):
+        gap = abs(float(imgs[mode].mean()) - float(imgs["nee"].mean()))
+        if not np.isfinite(imgs[mode]).all() or gap >= RIS_MEAN_ABS:
+            raise AssertionError(f"manylights {mode}: mean gap {gap}")
+    if float(m.max()) != cap or bool(((m % 8) != 0).any()):
+        raise AssertionError(f"restir M max {float(m.max())}, cap {cap}")
+
+    r = Renderer(nee_scene(MANY256, 800, 5, nee=True, nee_ris=8),
+                 device="cuda")
+    if len(r.cfg.sphere_batch) != 256 or len(r.cfg.nee_lights) != 256:
+        raise AssertionError("manylights256: not every sphere batched")
+    r.render(2)
+    img = r.image()
+    if not np.isfinite(img).all() or img.mean() <= 0:
+        raise AssertionError("manylights256 image is not finite and > 0")
+    runs = [time_ms(r.step, 3, warm=0), time_ms(r.step, 3, warm=0)]
+    log(json.dumps(dict(metric="manylights256_ris8_ms_per_iteration",
+                        value=float(np.mean(runs)), runs=runs,
+                        config="manylights256.txt 800x800 depth 5 "
+                               "--nee-ris 8 (256 spheres batched)",
+                        mean=float(img.mean()), gpu=gpu,
+                        **profile_one(r.step))))
+
+    mk.LAUNCHES = 0
+    cli = subprocess.run(
+        [sys.executable, "-m", PKG, SCENE, "--nee", "--stratified",
+         "--iterations", "4", "--device", "cuda", "--metrics", "--outdir",
+         outdir, "--out", "cornell_nee_cli_4spp"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0 or "route=wavefront" not in cli.stderr:
+        raise AssertionError(f"--nee CLI failed ({cli.returncode}):\n"
+                             f"{cli.stderr}")
+    metrics = json.loads(cli.stderr.strip().splitlines()[-1])
+    if not os.path.exists(metrics["output"]):
+        raise AssertionError("--nee CLI wrote no PNG")
+    log(json.dumps(dict(phase="nee cli", **metrics)))
 
 
 def traversal_bounds(gpu: str, p8, pb, waves: dict) -> dict:
@@ -1582,7 +1931,7 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
-    for path in (SCENE, GLASS, GOLDEN, MESH):
+    for path in (SCENE, GLASS, GOLDEN, MESH, LIGHTS, MANY, MANY256):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1728,6 +2077,9 @@ def main() -> int:
 
     # ---- 9. the train step --------------------------------------------------
     train_phases(gpu, r.accum / r.iteration)
+
+    # ---- 9b. direct lighting: NEE, RIS, ReSTIR, many lights -----------------
+    nee_phases(args.outdir, gpu)
 
     # ---- 10. the probes P1 and P2 -------------------------------------------
     probes = probe_phases(gpu)

@@ -13,7 +13,6 @@ import argparse
 import os
 import sys
 
-_SLICE_B = "slice B (NEE)"
 _SLICE_D = "slice D (textures and environment)"
 _SLICE_E = "slice E (integrator features)"
 _SLICE_F = "slice F (render services)"
@@ -21,9 +20,7 @@ _SLICE_H = "slice H (the app)"
 # JAX CLI flag -> why the port does not take it yet
 UNPORTED_FLAGS = {
     "--sort": _SLICE_E, "--compact": _SLICE_E,
-    "--russian-roulette": _SLICE_E, "--nee": _SLICE_B,
-    "--nee-ris": _SLICE_E, "--restir": _SLICE_E, "--restir-cap": _SLICE_E,
-    "--sampler": _SLICE_E, "--clamp": _SLICE_E, "--gamma": _SLICE_E,
+    "--russian-roulette": _SLICE_E, "--sampler": _SLICE_E, "--clamp": _SLICE_E, "--gamma": _SLICE_E,
     "--aces": _SLICE_E, "--bilinear": _SLICE_D, "--bilinear-fast": _SLICE_D,
     "--adaptive": _SLICE_F, "--adaptive-epoch": _SLICE_F,
     "--denoise": _SLICE_F, "--checkpoint-every": _SLICE_F,
@@ -56,6 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stratified", action="store_true",
                    help="stratified sampling (per-pixel rotated lattice "
                         "camera and BSDF draws)")
+    p.add_argument("--nee", action="store_true",
+                   help="next-event estimation: one area-light sample a "
+                        "bounce with one-sample MIS")
+    p.add_argument("--nee-ris", type=int, default=0, metavar="M",
+                   help="RIS direct lighting: one shadow ray resampled "
+                        "from M light candidates (implies --nee)")
+    p.add_argument("--restir", type=int, default=0, metavar="M",
+                   help="temporal ReSTIR at depth 0 over M fresh "
+                        "candidates a frame (implies --nee)")
+    p.add_argument("--restir-cap", type=float, default=20.0,
+                   help="ReSTIR reservoir count cap, in units of M")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="emit a JSON-line metrics record to stderr")
@@ -92,6 +100,10 @@ def main(argv=None) -> int:
     st.antialias = not args.no_antialias
     st.stratified = args.stratified
     st.seed = args.seed
+    st.nee = args.nee or args.nee_ris >= 2 or args.restir >= 1
+    st.nee_ris = args.nee_ris
+    st.restir = args.restir
+    st.restir_cap = args.restir_cap
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, args.out or st.image_name)
 
@@ -99,8 +111,8 @@ def main(argv=None) -> int:
     w, h = scene.camera.resolution
     metrics = RenderMetrics(width=w, height=h, trace_depth=st.trace_depth)
     print(f"rendering {args.scene}: {w}x{h}, {st.iterations} iterations, "
-          f"depth {st.trace_depth}, device={renderer.device}",
-          file=sys.stderr)
+          f"depth {st.trace_depth}, device={renderer.device}, "
+          f"route={renderer.route}", file=sys.stderr)
     metrics.start()
     renderer.step_many(st.iterations)
     synchronize(renderer.device)

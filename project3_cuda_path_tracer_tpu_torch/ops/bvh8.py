@@ -24,7 +24,8 @@ array, node and triangle rows read as 16-byte vectors.
 `traverse8()` is the wrapper the integrator calls: CPU tensors take
 `traverse8_plain` (the same per-ray stack walk in torch ops), CUDA tensors
 launch the persistent kernel on the planes as they are (a plane is copied
-only if it is not contiguous), counted in LAUNCHES. Two more instances
+only if it is not contiguous), counted in LAUNCHES (and, in the occlusion
+mode that NEE's shadow rays take, also in LAUNCHES_ANY_HIT). Two more instances
 serve chip_smoke.py and tests/test_torch_cuda.py only (CUDA tensors only):
 `_traverse8_grid`, the first port's schedule, one thread per ray (the A/B
 and the bitwise check; counted in LAUNCHES_GRID), and `_traverse8_tiny`,
@@ -60,6 +61,7 @@ from ..utils.device import stream_counter
 from . import pallas_bvh as PB
 
 LAUNCHES = 0       # persistent launches (the renderer's schedule)
+LAUNCHES_ANY_HIT = 0  # those of LAUNCHES in occlusion mode (shadow rays)
 LAUNCHES_GRID = 0  # grid-schedule launches (the A/B only)
 LAUNCHES_TINY = 0  # tiny-stack launches (the overflow check only)
 # The kernel's instances, as csrc/bvh8.cu numbers them.
@@ -330,7 +332,7 @@ def _launch(instance: str, qo, qd, packed: PackedMesh8,
     (CUDA tensors only); count it. `stats`, an int64 [3] tensor on the
     card, gets the busy and total lane slots of the pop steps added and the
     deepest stack maxed in."""
-    global LAUNCHES, LAUNCHES_GRID, LAUNCHES_TINY
+    global LAUNCHES, LAUNCHES_ANY_HIT, LAUNCHES_GRID, LAUNCHES_TINY
     if instance not in INSTANCES:
         raise ValueError(f"instance must be one of {tuple(INSTANCES)}")
     dev = PB.check_rays(qo, qd, t_bound)
@@ -374,6 +376,7 @@ def _launch(instance: str, qo, qd, packed: PackedMesh8,
     PB.raise_on(rc, lib, "bvh8")
     if instance == "persistent":
         LAUNCHES += 1
+        LAUNCHES_ANY_HIT += int(any_hit)
     elif instance == "grid":
         LAUNCHES_GRID += 1
     else:

@@ -8,15 +8,18 @@ stages are the plain version of the CUDA megakernel (csrc/megakernel.cu):
 
 Scope: cubes, spheres and triangle meshes (through the BVH traversal
 kernels of ops/bvh8.py and ops/pallas_bvh.py), untextured albedo, a constant
-environment, the optional glossy Phong lobe, Fresnel refraction. SDFs,
-textures, the procedural sky, NEE, dispersion, bump and normal maps come
-with later slices.
+environment, the optional glossy Phong lobe, Fresnel refraction, area-light
+NEE with one-sample MIS (ops/nee.py: the shadow rays are occlusion queries
+of `intersect_planar`, the MIS terms live in `shade_planar`), and the
+batched sphere pass of many-light scenes. SDFs, textures, the procedural
+sky, env-map NEE, dispersion, bump and normal maps come with later slices.
 
 Reference: src/intersections.h:27-144 (slab + quadratic in object space,
 world-distance t, 1e-4 back-off) and scatterRay, src/interactions.h:44-79.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -62,10 +65,11 @@ def _hash01(idx: torch.Tensor, salt: int) -> torch.Tensor:
 
 # R_d rank-1 lattices (Roberts 2018): the i-th point is frac(0.5 + i*ALPHA).
 _R2A = (0.7548776662466927, 0.5698402909980532)
+_R3A = (0.8191725133961645, 0.6710436067037893, 0.5497004779019703)
 _R4A = (0.8566748838545029, 0.7338918566271259,
         0.6287067210378086, 0.5385972572236101)
 _PHI_INV = 0.6180339887498949
-_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 4: _R4A}
+_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 3: _R3A, 4: _R4A}
 
 # "depth" slot of the camera dims (distinct from every bounce depth)
 CAMERA_SLOT = 0x7FFFFFFF
@@ -75,6 +79,7 @@ SALT_AA = 0x68BC21EB
 SALT_LENS = 0x51633E2D
 SALT_TIME = 0x3504F333
 SALT_BOUNCE = 0x2545F491
+SALT_NEE_AREA = 0x7F4A7C15
 
 
 def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
@@ -322,9 +327,14 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      alive: Optional[torch.Tensor] = None,
                      meshes: Optional[T.MeshBundle] = None,
                      differentiable: bool = False,
-                     tri_offset=0) -> HitP:
+                     tri_offset=0, any_hit: bool = False) -> HitP:
     """MESH geom g through its packed BVH: kernel K2 for a PackedMesh8, K3
     for a binary PackedMesh (the JAX `_mesh_hit_packet`).
+
+    `any_hit` (shadow rays) runs K2 in its occlusion mode: a ray stops at
+    the first leaf where it accepts a triangle, so only `t` says anything.
+    The binary tree has no such mode and runs K3's nearest hit under the
+    same bound, as the JAX package does.
 
     The traversal is a discrete decision and carries no gradient: its rays
     and outputs are detached. With `differentiable`, t, the barycentrics,
@@ -339,7 +349,8 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     q_o = tuple(c.detach() for c in qo)
     q_d = tuple(c.detach() for c in qd)
     if isinstance(packed, B8.PackedMesh8):
-        t_obj, nl, u, v, tri = B8.traverse8(q_o, q_d, packed, t_bound=t_bound)
+        t_obj, nl, u, v, tri = B8.traverse8(q_o, q_d, packed, t_bound=t_bound,
+                                            any_hit=any_hit)
     else:
         t_obj, nl, u, v, tri = PB.traverse(q_o, q_d, packed, t_bound=t_bound)
     hit = tri >= 0
@@ -397,20 +408,112 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 point=ip_world, surf=sf_world, u=u, v=v, outside=facing)
 
 
+# Spheres tested per step of the batched sphere pass: each step computes a
+# [K, N] block and keeps only the running (t_best, winner).
+SPHERE_BATCH_K = 16
+
+
+def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
+                            geoms: T.Geoms, idxs: Sequence[int]) -> HitP:
+    """Every sphere of `idxs` against the wavefront in one blocked pass (the
+    JAX `_batched_spheres_planar`): the many-light path, where the per-geom
+    unroll would enqueue one primitive test per emitter.
+
+    Eligible spheres (render/integrator._eligible_sphere_batch) have a
+    uniform scale, so each is a world-space centre and radius, and an
+    untextured material, so no lane reads its uv. Each step tests
+    SPHERE_BATCH_K spheres as one [K, N] block and carries only (t_best,
+    winner); the winner's attributes are recomputed at the end. The
+    semantics are `_primitive_hit_planar`'s for a sphere: the first sphere
+    with the smallest positive world distance wins, the point backs off
+    RAY_EPS object units (RAY_EPS * 2r in the world), interior hits flip
+    the normal."""
+    dev = o.x.device
+    gi = torch.as_tensor(list(idxs), dtype=torch.int64, device=dev)
+    tm = geoms.transform[gi]                              # [B,4,4]
+    cx, cy, cz = tm[:, 0, 3], tm[:, 1, 3], tm[:, 2, 3]
+    r = 0.5 * torch.sqrt(tm[:, 0, 0] * tm[:, 0, 0] + tm[:, 1, 0] * tm[:, 1, 0]
+                         + tm[:, 2, 0] * tm[:, 2, 0])
+    vel = geoms.velocity[gi]                              # [B,3]
+    mid = geoms.material_id[gi].to(torch.int64)
+    n, b_count = o.x.shape[0], len(idxs)
+    t_best = torch.full((n,), BIG, dtype=F32, device=dev)
+    i_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for base in range(0, b_count, SPHERE_BATCH_K):
+        sl = slice(base, min(base + SPHERE_BATCH_K, b_count))
+        col = lambda a: a[sl, None]  # noqa: E731  [K,1] against [N]
+        ocx = o.x - col(vel[:, 0]) * times - col(cx)
+        ocy = o.y - col(vel[:, 1]) * times - col(cy)
+        ocz = o.z - col(vel[:, 2]) * times - col(cz)
+        bq = ocx * d.x + ocy * d.y + ocz * d.z
+        cq = ocx * ocx + ocy * ocy + ocz * ocz - col(r) * col(r)
+        disc = bq * bq - cq
+        has = disc >= 0.0
+        # double where (see _sphere_local_planar)
+        sq = torch.sqrt(torch.where(has, _max(disc, 0.0),
+                                    torch.ones_like(disc)))
+        t1 = -bq + sq
+        t2 = -bq - sq
+        both_neg = (t1 < 0) & (t2 < 0)
+        both_pos = (t1 > 0) & (t2 > 0)
+        t_c = torch.where(both_pos, torch.minimum(t1, t2),
+                          torch.maximum(t1, t2))
+        t_c = torch.where(has & ~both_neg, t_c, torch.full_like(t_c, BIG))
+        # the first of the block's smallest t: the strict `<` merge of the
+        # spheres one by one
+        t_blk, j_blk = torch.min(t_c, dim=0)
+        closer = t_blk < t_best
+        t_best = torch.where(closer, t_blk, t_best)
+        i_best = torch.where(closer, j_blk + base, i_best)
+
+    got = i_best >= 0
+    iw = torch.clamp(i_best, 0, b_count - 1)
+    rw = _max(r[iw], 1e-12)
+    # the centre moved into the ray's time frame (the primitive path moves
+    # the origin out of it)
+    cwx = cx[iw] + vel[iw, 0] * times
+    cwy = cy[iw] + vel[iw, 1] * times
+    cwz = cz[iw] + vel[iw, 2] * times
+    surf = V3(o.x + t_best * d.x, o.y + t_best * d.y, o.z + t_best * d.z)
+    tb = t_best - (2.0 * RAY_EPS) * rw
+    point = V3(o.x + tb * d.x, o.y + tb * d.y, o.z + tb * d.z)
+    inv_r = 1.0 / rw
+    nr = V3((surf.x - cwx) * inv_r, (surf.y - cwy) * inv_r,
+            (surf.z - cwz) * inv_r)
+    ox_c, oy_c, oz_c = o.x - cwx, o.y - cwy, o.z - cwz
+    outside = ox_c * ox_c + oy_c * oy_c + oz_c * oz_c > rw * rw
+    flip = torch.where(outside, 1.0, -1.0).to(F32)
+    normal = vec.normalize(V3(nr.x * flip, nr.y * flip, nr.z * flip))
+    half = torch.full((n,), 0.5, dtype=F32, device=dev)  # uv: unread
+    return HitP(t=torch.where(got, t_best, torch.full_like(t_best, BIG)),
+                normal=normal, mat_id=mid[iw], point=point, surf=surf,
+                u=half, v=half, outside=outside)
+
+
 def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      geom_types: Sequence[int], packed_meshes: tuple = (),
                      mesh_ids: Sequence[int] = (),
                      alive: Optional[torch.Tensor] = None,
                      meshes: Optional[T.MeshBundle] = None,
-                     differentiable_mesh: bool = False) -> HitP:
+                     differentiable_mesh: bool = False,
+                     any_hit: bool = False,
+                     max_t: Optional[torch.Tensor] = None,
+                     sphere_batch: Sequence[int] = ()) -> HitP:
     """Nearest hit over all geoms (src/pathtrace.cu:176-199): a strict `<`
     merge in geom order, then misses become t = -1, material 0.
 
-    Primitives are tested first; their nearest hit becomes the meshes'
-    occlusion bound. MESH geom g traverses `packed_meshes[mesh_ids[g]]`,
-    and `alive` ([N] bool) marks the lanes that may still hit: dead lanes
-    take no part in the traversal. `differentiable_mesh` recomputes the
-    mesh hits from the bundle `meshes` (`_mesh_hit_packet`)."""
+    Primitives are tested first (the spheres of `sphere_batch` in one
+    `_batched_spheres_planar` pass, before the others); their nearest hit
+    becomes the meshes' occlusion bound. MESH geom g traverses
+    `packed_meshes[mesh_ids[g]]`, and `alive` ([N] bool) marks the lanes
+    that may still hit: dead lanes take no part in the traversal.
+    `differentiable_mesh` recomputes the mesh hits from the bundle `meshes`
+    (`_mesh_hit_packet`).
+
+    Occlusion queries (NEE shadow rays): `max_t` ([N]) caps the search, so
+    a hit beyond it reports a miss (t = -1) and mesh subtrees beyond it are
+    pruned; `any_hit` runs the 8-wide traversal in its occlusion mode. Only
+    `t > 0` of such a query means anything."""
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g] if g < len(mesh_ids) else -1
@@ -426,7 +529,9 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 "ROADMAP slice E)")
     n = o.x.shape[0]
     z = torch.zeros((n,), dtype=F32, device=o.x.device)
-    best = HitP(t=torch.full((n,), BIG, dtype=F32, device=o.x.device),
+    t_init = (torch.full((n,), BIG, dtype=F32, device=o.x.device)
+              if max_t is None else torch.clamp(max_t, max=BIG))
+    best = HitP(t=t_init,
                 normal=V3(z, z, z),
                 mat_id=torch.zeros((n,), dtype=torch.int64,
                                    device=o.x.device),
@@ -444,8 +549,12 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                     v=torch.where(closer, cand.v, best.v),
                     outside=torch.where(closer, cand.outside, best.outside))
 
+    batched = set(sphere_batch)
+    if batched:
+        best = merge(best, _batched_spheres_planar(o, d, times, geoms,
+                                                   sphere_batch))
     for g, gtype in enumerate(geom_types):
-        if gtype != T.MESH:
+        if gtype != T.MESH and g not in batched:
             best = merge(best, _primitive_hit_planar(o, d, times, geoms, g,
                                                      gtype))
     for g, gtype in enumerate(geom_types):
@@ -456,8 +565,9 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 t_world_bound=best.t, alive=alive, meshes=meshes,
                 differentiable=differentiable_mesh,
                 tri_offset=(meshes.mesh_tri_offset[mid].to(torch.int64)
-                            if differentiable_mesh else 0)))
-    miss = best.t >= BIG
+                            if differentiable_mesh else 0),
+                any_hit=any_hit))
+    miss = best.t >= t_init
     return best._replace(t=torch.where(miss, -1.0, best.t),
                          mat_id=torch.where(miss, 0, best.mat_id))
 
@@ -472,6 +582,9 @@ class ShadeOutP(NamedTuple):
     throughput: V3
     radiance: V3
     alive: torch.Tensor
+    # under NEE: the chosen lobe's pdf of the new direction (0 for the delta
+    # lobes), which MIS-weights the next bounce's emissive hit; else None
+    nee_pdf: Optional[torch.Tensor] = None
 
 
 def _mat_select(table: torch.Tensor, mat_id: torch.Tensor):
@@ -513,10 +626,25 @@ def _pow5(x: torch.Tensor) -> torch.Tensor:
 def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                  materials: T.Materials, textures: T.Textures,
                  uniforms: Sequence[torch.Tensor],
-                 last_bounce: torch.Tensor, glossy: bool = True) -> ShadeOutP:
+                 last_bounce: torch.Tensor, glossy: bool = True,
+                 nee: Optional[tuple] = None,
+                 nee_area: float = 0.0) -> ShadeOutP:
     """One scattering step over the wavefront; `uniforms` holds the four
-    planes (u_lobe, u1, u2, u_fresnel). The plain branch of the JAX
-    `shade_planar` with sky off and no NEE.
+    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar` with sky
+    off, area-light NEE or none.
+
+    `nee` (None = BSDF sampling alone) is the tuple (wl V3, vis [N] bool,
+    le V3, pdf_l [N], prev_pdf [N]): this bounce's shadow-tested light
+    sample (direction, visibility, emitted radiance, the light sampler's
+    solid-angle pdf) and the previous bounce's lobe pdf. Light and BSDF
+    sampling combine by the one-sample balance heuristic: the direct term
+    of the diffuse and glossy lobes is weighted pdf_bsdf / (pdf_l +
+    pdf_bsdf), and with `nee_area` > 0 (the light union's area) an
+    emissive BSDF hit is weighted prev_pdf / (prev_pdf + pdf_l(hit)), with
+    pdf_l(hit) = t^2 / (|cos| * area) and prev_pdf == 0 (camera, mirror,
+    refraction) meaning full weight. The direct term is skipped on the last
+    bounce, so the estimator covers the plain one's transport at equal
+    depth. The lobe's pdf of the new direction comes back as `nee_pdf`.
 
     Detach convention: the lobe and Fresnel decisions and the diffuse
     direction are detached; the mirror, refraction and glossy directions
@@ -544,6 +672,14 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     mis = alive & missed
     zero = torch.zeros_like(hit.t)
     rad_scale = torch.where(lit, emittance, zero)
+    if nee is not None and nee_area > 0.0:
+        prev_pdf = nee[4]
+        cos_l_hit = torch.abs(vec.dot(hit.normal, ray_d))
+        pdf_l_hit = (hit.t * hit.t) / _max(cos_l_hit * nee_area, 1e-9)
+        w_hit = torch.where(prev_pdf > 0.0,
+                            prev_pdf / _max(prev_pdf + pdf_l_hit, 1e-30),
+                            torch.ones_like(prev_pdf))
+        rad_scale = rad_scale * w_hit
     radiance = V3(*(torch.where(lit, th * al * rad_scale,
                                 torch.where(mis, th * en, zero))
                     for th, al, en in zip(throughput, albedo, env)))
@@ -555,6 +691,7 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     n = hit.normal
     d_diff = cosine_hemisphere_planar(n, uniforms[1], uniforms[2])
     d_spec = reflect_planar(ray_d, n)
+    d_mirror = d_spec  # the mirror axis (the glossy lobe's pdf under NEE)
 
     if glossy:
         # Phong cos^n lobe around the mirror axis (SPECEX > 0)
@@ -603,6 +740,30 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     new_dir = vec.normalize(vec.where(take_refr, d_refr,
                                       vec.where(take_spec, d_spec, d_diff)))
 
+    if nee is not None:
+        # the direct term through the non-delta lobes, each MIS-weighted:
+        #   diffuse: albedo * le * pdf_bd / (pdf_l + pdf_bd)
+        #   glossy:  spec_color * le * q_l / (pdf_l + p_spec * q_l)
+        # pdf_bd = p_diff * cos_s / pi, q_l = (e+1)/(2 pi) * cos^e of the
+        # angle to the mirror axis
+        wl, vis, le_n, pdf_l = nee[0], nee[1], nee[2], nee[3]
+        cos_s = _max(vec.dot(hit.normal, wl), 0.0)
+        nee_ok = alive & hit_ok & ~is_light & ~last_bounce & vis
+        pdf_bd = p_diff * cos_s * (1.0 / math.pi)
+        wd = torch.where(nee_ok, pdf_bd / (pdf_l + pdf_bd + 1e-30), zero)
+        f = V3(albedo.x * wd, albedo.y * wd, albedo.z * wd)
+        if glossy:
+            cos_al = _clip(vec.dot(wl, d_mirror), 1e-9, 1.0)
+            q_l = ((spec_exp + 1.0) * (0.5 / math.pi)
+                   * torch.pow(cos_al, spec_exp))
+            q_l = torch.where((spec_exp > 0.0) & (cos_s > 0.0), q_l, zero)
+            wg = torch.where(nee_ok,
+                             q_l / (pdf_l + p_spec * q_l + 1e-30), zero)
+            f = V3(f.x + spec_color.x * wg, f.y + spec_color.y * wg,
+                   f.z + spec_color.z * wg)
+        radiance = V3(*(r + th * le * fc for r, th, le, fc
+                        in zip(radiance, throughput, le_n, f)))
+
     inv_pd = 1.0 / _max(p_diff, 1e-6)
     inv_ps = 1.0 / _max(p_spec, 1e-6)
     inv_pr = 1.0 / _max(p_refr, 1e-6)
@@ -619,6 +780,21 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     push = torch.where(transmit, 2.0 * RAY_EPS, 0.0).to(F32)
     new_origin = V3(*(torch.where(transmit, s, p) + push * nd
                       for s, p, nd in zip(hit.surf, hit.point, new_dir)))
+    still_alive = scattering & ~last_bounce
+    nee_pdf = None
+    if nee is not None:
+        # the chosen lobe's density at the chosen direction; 0 for the
+        # delta lobes (mirror, refraction, the glossy fallback), which NEE
+        # never covers
+        take_diff = still_alive & ~take_refr & ~take_spec
+        cos_next = _max(vec.dot(n, new_dir), 0.0)
+        nee_pdf = torch.where(take_diff, p_diff * cos_next * (1.0 / math.pi),
+                              zero)
+        if glossy:
+            q_samp = ((spec_exp + 1.0) * (0.5 / math.pi)
+                      * torch.pow(_clip(cos_a, 1e-9, 1.0), spec_exp))
+            gloss = still_alive & take_spec & (spec_exp > 0.0) & above
+            nee_pdf = torch.where(gloss, p_spec * q_samp, nee_pdf)
     return ShadeOutP(origin=new_origin, direction=new_dir,
                      throughput=new_throughput, radiance=radiance,
-                     alive=scattering & ~last_bounce)
+                     alive=still_alive, nee_pdf=nee_pdf)

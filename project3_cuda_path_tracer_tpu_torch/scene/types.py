@@ -185,6 +185,14 @@ class RenderSettings:
     # depth, pixel) instead of the pseudo-random stream (ops/wavefront).
     stratified: bool = False
     seed: int = 0
+    # Area-light direct lighting (ops/nee.py, render/integrator._wire_nee):
+    # one light sample a bounce with one-sample MIS; RIS over `nee_ris`
+    # candidates (>= 2); temporal ReSTIR over `restir` fresh candidates a
+    # frame, its reservoir count capped at restir_cap * restir.
+    nee: bool = False
+    nee_ris: int = 0
+    restir: int = 0
+    restir_cap: float = 20.0
 
 
 @dataclass

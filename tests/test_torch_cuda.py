@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K3 in
-both schedules and both node-row layouts and K4 (csrc/bvh_binary.cu), and
-the probes P1/P2 (csrc/gather.cu, csrc/extract_cost.cu). Every test here
+K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K2's
+any-hit mode on the shadow rays of a NEE iteration, K3 in both schedules
+and both node-row layouts and K4 (csrc/bvh_binary.cu), the probes P1/P2
+(csrc/gather.cu, csrc/extract_cost.cu), and a NEE iteration on the card
+against the CPU. Every test here
 is `cuda`-marked and skips without a card. The file imports neither JAX
 nor the JAX package, so it runs where they are absent:
 
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from project3_cuda_path_tracer_tpu_torch import load_scene
+from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
 from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
@@ -413,3 +415,139 @@ def test_fused_rows_on_card():
                        pb.nodes_f[:, :6].view(torch.int32))
     assert torch.equal(pb.nodes[:, 6:].contiguous().view(torch.int32),
                        pb.nodes_i[:, :2])
+
+
+TORUS_NEE = """MATERIAL 0
+RGB 1 1 1
+EMITTANCE 6
+
+MATERIAL 1
+RGB .7 .6 .5
+
+CAMERA
+RES 64 64
+FOVY 45
+ITERATIONS 2
+DEPTH 4
+FILE torus_nee
+EYE 0 3 6
+LOOKAT 0 1 0
+UP 0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS 0 5 0
+ROTAT 0 0 0
+SCALE 3 .2 3
+
+OBJECT 1
+mesh torus.obj
+material 1
+TRANS 0 1.5 0
+ROTAT 30 0 0
+SCALE 1.5 1.5 1.5
+
+OBJECT 2
+cube
+material 1
+TRANS 0 0 0
+ROTAT 0 0 0
+SCALE 10 .1 10
+"""
+
+
+@pytest.mark.cuda
+def test_k2_any_hit_shadow_rays_match_plain_on_card(tmp_path):
+    """One stratified NEE iteration of a torus scene (64x64, depth 4) on the
+    card: the renderer's K2 any-hit launches (one a bounce but the last)
+    are captured, and K2 in occlusion mode equals traverse8_plain(any_hit=
+    True) on each of those wavefronts bit for bit, pops included."""
+    _need_card()
+    (tmp_path / "torus.obj").write_text(open(TORUS).read())
+    path = tmp_path / "torus_nee.txt"
+    path.write_text(TORUS_NEE)
+    scene = load_scene(str(path))
+    scene.settings.nee = True
+    scene.settings.stratified = True
+    r = Renderer(scene, device="cuda")
+    assert r.route == "wavefront" and r.cfg.nee
+    kernel, waves = P8.traverse8, []
+
+    def capture(qo, qd, packed, t_bound=None, any_hit=False, **kwargs):
+        if any_hit:
+            waves.append((tuple(c.clone() for c in qo),
+                           tuple(c.clone() for c in qd), t_bound.clone()))
+        return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
+                      **kwargs)
+    before = P8.LAUNCHES
+    P8.traverse8 = capture
+    try:
+        r.step()
+    finally:
+        P8.traverse8 = kernel
+    torch.cuda.synchronize()
+    depth = scene.settings.trace_depth
+    assert len(waves) == depth - 1
+    assert P8.LAUNCHES == before + depth + len(waves)
+    packed = r.packed_meshes[0]
+    for qo, qd, tb in waves:
+        got = P8.traverse8(qo, qd, packed, t_bound=tb, any_hit=True,
+                           return_pops=True)
+        want = P8.traverse8_plain(qo, qd, packed, t_bound=tb, any_hit=True)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+    assert int((waves[0][2] > 0).sum()) > 1000
+
+
+def _render_marking_f3(r):
+    """One iteration of `r`, and a [bounces, N] bool array marking, for
+    each shadow pass, the live path slots whose shadow ray started inside a
+    solid (it met a surface from within, less than 1e-3 from its origin).
+    That is ROADMAP's F3: on cornell's 0.01-thick walls the 1e-4
+    object-space back-off is about one float32 step of the distance, so a
+    hit point lands on either side of its wall by an ulp of rounding, which
+    the card and the CPU (their rsqrt, sin, cos) need not share."""
+    from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
+    real, flags = wf.intersect_planar, []
+
+    def spy(*args, **kwargs):
+        hit = real(*args, **kwargs)
+        if kwargs.get("any_hit"):
+            flags.append(((hit.t > 0) & (hit.t < 1e-3) & ~hit.outside
+                          & kwargs["alive"]).cpu())
+        return hit
+    wf.intersect_planar = spy
+    try:
+        img = r.render(1)
+    finally:
+        wf.intersect_planar = real
+    return img.reshape(-1, 3).T.cpu().numpy(), torch.stack(flags).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "lights"])
+def test_nee_iteration_card_matches_cpu(name):
+    """A stratified NEE iteration at 64x64 depth 8 on the card (the
+    wavefront route) against the same iteration on the CPU, under the lane
+    contract on the lanes where the two runs agree which shadow rays
+    started inside a wall (`_render_marking_f3`); the others, at most 10%,
+    are F3's."""
+    _need_card()
+    imgs, f3 = [], []
+    for dev in ("cuda", "cpu"):
+        scene = load_scene(os.path.join(SCENES, name + ".txt"))
+        scene.camera.resolution = (64, 64)
+        scene.camera.derive()
+        scene.settings.trace_depth = 8
+        scene.settings.stratified = True
+        scene.settings.nee = True
+        r = Renderer(scene, device=dev)
+        assert r.route == "wavefront"
+        img, flags = _render_marking_f3(r)
+        imgs.append(img)
+        f3.append(flags)
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
+    flips = (f3[0] != f3[1]).any(axis=0)
+    assert flips.mean() <= 0.1
+    assert_lane_contract(imgs[0][:, ~flips], imgs[1][:, ~flips])

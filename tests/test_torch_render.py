@@ -118,7 +118,7 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for want in ('models.inverse', 'models.optim', 'tools.exp_gather',\n"
-        "             'tools.exp_extract_cost'):\n"
+        "             'tools.exp_extract_cost', 'ops.nee'):\n"
         "    assert p.__name__ + '.' + want in names, want\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax') or m.startswith(\n"
@@ -147,7 +147,7 @@ def test_cli_end_to_end(tmp_path, capsys):
     assert rec["trace_depth"] == 2 and rec["output"] == str(png)
 
 
-@pytest.mark.parametrize("flag", ["--nee", "--sharded", "--denoise",
+@pytest.mark.parametrize("flag", ["--sort", "--sharded", "--denoise",
                                   "--clamp=0.5"])
 def test_cli_unported_flag_exits_2(flag, capsys):
     rc = cli.main([os.path.join(SCENES, "cornell.txt"), flag])
@@ -159,3 +159,85 @@ def test_cli_unknown_flag_exits_2():
     with pytest.raises(SystemExit) as exc:
         cli.main([os.path.join(SCENES, "cornell.txt"), "--no-such-flag"])
     assert exc.value.code == 2
+
+
+# The small emitter scene of the JAX tests/test_restir.py (CLI_SCENE).
+EMITTER_SCENE = """MATERIAL 0
+RGB 1 1 1
+EMITTANCE 5
+
+MATERIAL 1
+RGB .6 .6 .6
+
+CAMERA
+RES 24 24
+FOVY 45
+ITERATIONS 4
+DEPTH 3
+FILE c
+EYE 0 2 6
+LOOKAT 0 2 0
+UP 0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS 0 6 0
+ROTAT 0 0 0
+SCALE 2 .2 2
+
+OBJECT 1
+cube
+material 1
+TRANS 0 0 0
+ROTAT 0 0 0
+SCALE 8 .1 8
+"""
+
+
+def _run_cli(scene, flags, tmp_path, capsys):
+    rc = cli.main([str(scene), "--device", "cpu", "--iterations", "2",
+                   "--outdir", str(tmp_path), "--out", "nee", "--metrics",
+                   *flags])
+    err = capsys.readouterr().err
+    png = tmp_path / "nee.png"
+    assert rc == 0, err
+    assert png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert "route=wavefront" in err and "features dropped" not in err
+    rec = json.loads(err.strip().splitlines()[-1])
+    assert rec["iters"] == 2 and rec["output"] == str(png)
+
+
+@pytest.mark.parametrize("flags", [["--nee"], ["--nee-ris", "2"],
+                                   ["--restir", "2"]])
+def test_cli_direct_lighting(flags, tmp_path, capsys):
+    """--nee, --nee-ris 2 and --restir 2 on the small emitter scene render
+    through the wavefront route and write a PNG."""
+    scene = tmp_path / "small.txt"
+    scene.write_text(EMITTER_SCENE)
+    _run_cli(scene, flags, tmp_path, capsys)
+
+
+@pytest.mark.parametrize("flags", [["--nee", "--stratified"],
+                                   ["--nee-ris", "4"],
+                                   ["--restir", "2", "--restir-cap", "4"]])
+def test_cli_direct_lighting_lights_scene(flags, tmp_path, capsys):
+    """scenes/lights.txt (two area lights) at 32x32, depth 2, the same."""
+    with open(os.path.join(SCENES, "lights.txt")) as f:
+        text = f.read().replace("RES 800 800", "RES 32 32")
+    assert "RES 32 32" in text
+    scene = tmp_path / "lights32.txt"
+    scene.write_text(text)
+    _run_cli(scene, ["--depth", "2", *flags], tmp_path, capsys)
+
+
+def test_cli_nee_drop_is_announced(tmp_path, capsys):
+    """--nee on a scene without area lights names the drop on stderr and
+    renders plain."""
+    from test_torch_nee import NO_LIGHTS
+    scene = tmp_path / "dark.txt"
+    scene.write_text(NO_LIGHTS)
+    rc = cli.main([str(scene), "--device", "cpu", "--iterations", "1",
+                   "--outdir", str(tmp_path), "--nee"])
+    assert rc == 0
+    assert "features dropped: nee" in capsys.readouterr().err
