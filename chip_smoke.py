@@ -39,6 +39,17 @@ once) and drives these paths:
     --nee-ris 8 and --restir 8 against --nee, the reservoir reaching its
     cap; scenes/manylights256.txt with --nee-ris 8 through the batched
     sphere pass; the CLI with --nee;
+  - textures and environment lighting (slice D) through `Renderer`:
+    scenes/textured_env.txt (a textured ground and torus, mirror and glass
+    spheres, the sky.hdr env map) and its procedural twin at their own
+    2048x2048 depth 8 on the wavefront route, one K2 launch a bounce on the
+    torus and, on textured_env, one P1 launch a bounce: the fused atlas+env
+    texel fetch (ops/texfetch.py); P1 held bit for bit against its plain
+    version on that path's bounce-0 and bounce-1 indices and timed warm and
+    cold beside torch.take; K2 bit for bit on the torus's bounce-0/1 rays
+    (nearest) and on env NEE's shadow rays (any hit); --bilinear and
+    --bilinear-fast against nearest; env-map and mixed NEE at 512x512
+    against the plain render; the card against the CPU at 64x64;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -84,6 +95,8 @@ MESH = os.path.join(ROOT, "scenes", "mesh.txt")
 LIGHTS = os.path.join(ROOT, "scenes", "lights.txt")
 MANY = os.path.join(ROOT, "scenes", "manylights.txt")
 MANY256 = os.path.join(ROOT, "scenes", "manylights256.txt")
+TEXTURED = os.path.join(ROOT, "scenes", "textured_env.txt")
+TEXTURED_PROC = os.path.join(ROOT, "scenes", "textured_env_proc.txt")
 MESH_GEOM = 3  # the blob's geom index in scenes/mesh.txt
 
 # Lane contract of tests/test_megakernel.py: kernel and plain version are
@@ -1160,6 +1173,364 @@ def nee_phases(outdir: str, gpu: str) -> None:
     log(json.dumps(dict(phase="nee cli", **metrics)))
 
 
+@contextlib.contextmanager
+def capturing(module, name: str, keep, limit: int = 2):
+    """Wraps `module.<name>` while the block runs: the first `limit` calls
+    whose arguments `keep(*args, **kwargs)` accepts are recorded (their
+    tensors cloned) in the yielded list; every call is passed on."""
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        if len(calls) < limit and keep(*args, **kwargs):
+            calls.append(tuple(
+                tuple(c.clone() for c in a) if isinstance(a, tuple)
+                else a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args) + (
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in kwargs.items()},))
+        return real(*args, **kwargs)
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def zero_counts() -> None:
+    """Every kernel's launch counts to 0."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    mk.LAUNCHES = mk.LAUNCHES_GRID = 0
+    P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = P8.LAUNCHES_GRID = 0
+    P8.LAUNCHES_TINY = 0
+    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
+    P1.LAUNCHES = P1.LAUNCHES_AB = 0
+
+
+def read_counts() -> dict:
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    return dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES,
+                k2_any_hit=P8.LAUNCHES_ANY_HIT,
+                k2_other=P8.LAUNCHES_GRID + P8.LAUNCHES_TINY,
+                k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT + PB.LAUNCHES_SUB,
+                p1=P1.LAUNCHES, p1_ab=P1.LAUNCHES_AB)
+
+
+def textured_copy(outdir: str, name: str, res: int, extra: str = "",
+                  tag: str = "") -> str:
+    """scenes/<name>.txt at res x res (its assets by absolute path) with
+    `extra` scene text appended, written under outdir as
+    <name>_<res><tag>.txt."""
+    with open(os.path.join(ROOT, "scenes", name + ".txt")) as f:
+        text = f.read()
+    scenes = os.path.join(ROOT, "scenes")
+    text = (text.replace("RES         2048 2048", f"RES         {res} {res}")
+            .replace("assets/", os.path.join(scenes, "assets") + "/")
+            .replace("meshes/", os.path.join(scenes, "meshes") + "/"))
+    path = os.path.join(outdir, f"{name}_{res}{tag}.txt")
+    with open(path, "w") as f:
+        f.write(text + extra)
+    return path
+
+
+def textured_path(name: str, outdir: str, gpu: str) -> dict:
+    """scenes/<name>.txt at its own 2048x2048 depth 8 through `Renderer`:
+    one iteration with every count set to 0 just before it, which must take
+    the wavefront route with one K2 launch a bounce, no other traversal and
+    no K1, and P1 launches on textured_env (none on the procedural twin);
+    the fused-table indices and the K2 rays of that iteration are
+    captured; ms per iteration (CUDA events, two runs of 4 after the
+    warm-up), the profiler's kernels and device busy share, and an 8-spp
+    PNG."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch
+    r = Renderer(load_scene(os.path.join(ROOT, "scenes", name + ".txt")),
+                 device="cuda")
+    w, h = r.scene.camera.resolution
+    depth = r.cfg.trace_depth
+    fused = r.tables[3].fused_packed
+    zero_counts()
+    every = lambda *a, **k: True  # noqa: E731
+    with capturing(texfetch, "take_u32", every, limit=64) as fetches, \
+            capturing(P8, "traverse8", every) as waves:
+        r.step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fused_fetches = sum(torch.equal(f[0], fused) for f in fetches)
+    rec = dict(phase=f"{name} path", scene=f"scenes/{name}.txt",
+               resolution=[w, h], depth=depth, iterations=1, route=r.route,
+               fetches=len(fetches), fused_fetches=fused_fetches, **counts)
+    log(json.dumps(rec))
+    textured = name == "textured_env"
+    if ((w, h, depth) != (2048, 2048, 8) or r.route != "wavefront"
+            or counts["k2"] != depth
+            or any(counts[k] for k in ("k1", "k2_any_hit", "k2_other",
+                                       "k3_k4", "p1_ab"))
+            or counts["p1"] != len(fetches)
+            or (counts["p1"] > 0) != textured
+            or (textured and fused_fetches != depth)):
+        raise AssertionError(f"{name} path: {rec}")
+    runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=0)]
+    prof = profile_one(r.step)
+    r.reset()
+    r.render(8)
+    img = r.image()
+    if not np.isfinite(img).all() or (img < 0).any() or img.mean() <= 0:
+        raise AssertionError(f"{name} image is not finite and > 0")
+    png = r.save(os.path.join(outdir, f"{name}_2048_8spp"))
+    out = dict(metric=f"{name}_ms_per_iteration", value=float(np.mean(runs)),
+               runs=runs, config=f"{name}.txt 2048x2048 depth 8",
+               k2_launches=counts["k2"], p1_launches=counts["p1"],
+               mean=float(img.mean()), png=png, gpu=gpu, **prof)
+    log(json.dumps(out))
+    return dict(ms=out["value"], counts=counts, fetches=fetches[:2],
+                waves=waves, packed=r.packed_meshes[0])
+
+
+def p1_on_path(gpu: str, fetches: list) -> dict:
+    """P1 on the texture path's own inputs, the fused-table indices of
+    bounce 0 and bounce 1: bit for bit against gather_plain, timed held
+    (stream held, 20 calls) and cold (each call after a 128 MB write)
+    beside torch.take on the same indices and the plain version, with its
+    bound: (8 N + the table's bytes) / the HBM rate. Returns bounce 0's
+    numbers and both bounces' records."""
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_cold_ms
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as held_ms
+    recs = []
+    for b, (table, idx, _) in enumerate(fetches):
+        got = P1.gather(table, idx)
+        want = P1.gather_plain(table, idx)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        idx64 = idx.long()
+        fns = dict(p1=lambda: P1.gather(table, idx),
+                   torch_take=lambda: torch.take(table, idx64))
+        warm = {k: [] for k in fns}
+        cold = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            warm[k].append(held_ms(fns[k], 20, warm=3))
+            cold[k].append(float(np.median(time_cold_ms(fns[k], 10))))
+        plain = held_ms(lambda: P1.gather_plain(table, idx), 20, warm=3)
+        bd = bound(idx.numel() * 8 + table.numel() * 4, 0)
+        ms, cold_ms = float(np.mean(warm["p1"])), float(np.mean(cold["p1"]))
+        rec = dict(metric="P1_path_ms", wavefront=f"bounce {b}",
+                   fetches=idx.numel(), table_bytes=table.numel() * 4,
+                   instance=P1.INSTANCES[P1.instance_for(table.numel() * 4)],
+                   bitwise=equal, value=ms, runs=warm["p1"], cold_ms=cold_ms,
+                   cold_runs=cold["p1"], plain_ms=plain,
+                   library_ms=float(np.mean(warm["torch_take"])),
+                   library_cold_ms=float(np.mean(cold["torch_take"])),
+                   share_of_bound=bd["bound_ms"] / ms,
+                   cold_share_of_bound=bd["bound_ms"] / cold_ms,
+                   env_lanes=int((idx >= 512 * 512).sum()), **bd, gpu=gpu)
+        log(json.dumps(rec))
+        if not equal:
+            raise AssertionError(f"P1 bounce {b}: differs from gather_plain")
+        recs.append(rec)
+    return recs
+
+
+def k2_torus(gpu: str, packed, waves: list, any_hit: bool) -> list:
+    """K2 on the torus's captured bounce-0 and bounce-1 wavefronts (`waves`,
+    the renderer's traverse8 calls), nearest or any hit: bit for bit
+    against traverse8_plain, pops included, and timed held."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as held_ms
+    recs = []
+    for b, (qo, qd, _, kw) in enumerate(waves):
+        tb = kw["t_bound"]
+        k = P8.traverse8(qo, qd, packed, t_bound=tb, any_hit=any_hit,
+                         return_pops=True)
+        p = P8.traverse8_plain(qo, qd, packed, t_bound=tb, any_hit=any_hit)
+        torch.cuda.synchronize()
+        equal = same_bits(k, p)
+        ms = held_ms(lambda: P8._launch("persistent", qo, qd, packed, tb,
+                                        any_hit=any_hit), 20, warm=3)
+        rec = dict(check=f"K2 torus {'any-hit' if any_hit else 'nearest'} "
+                         f"bounce {b} vs traverse8_plain", bitwise=equal,
+                   rays=int(tb.numel()), live=int((tb > 0).sum()),
+                   hits=int((k[4] >= 0).sum()),
+                   mean_pops=float(k[5].float().mean()),
+                   max_pops=int(k[5].max()), held_ms=ms, gpu=gpu)
+        log(json.dumps(rec))
+        if not equal:
+            raise AssertionError(rec["check"] + ": differs")
+        recs.append(rec)
+    return recs
+
+
+# The emissive sphere of the mixed-mode copy of textured_env (the one of
+# tests/test_torch_envnee.py).
+EMITTER = """
+MATERIAL 4
+RGB 1 .9 .8
+EMITTANCE 6
+
+OBJECT 4
+sphere
+material 4
+TRANS 1.5 4 3
+ROTAT 0 0 0
+SCALE 1 1 1
+"""
+
+# Image means of the filtering modes at 16 spp: --bilinear against nearest
+# within 0.03 (tests/test_bilinear.py::test_bilinear_render_smoke) and
+# --bilinear-fast against --bilinear within 0.02
+# (::test_bilinear_fast_render_matches_exact), the pairs that file bounds.
+BILINEAR_MEAN, FAST_MEAN = 0.03, 0.02
+
+
+def bilinear_modes(gpu: str) -> dict:
+    """textured_env at 2048x2048 depth 8 in each filtering mode: 16 spp
+    each from one seed, the image means compared as tests/test_bilinear.py
+    bounds them, and ms per iteration."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    out = {}
+    for mode, kw in (("nearest", {}), ("bilinear", dict(bilinear=True)),
+                     ("bilinear_fast", dict(bilinear=True,
+                                            bilinear_fast=True))):
+        scene = load_scene(os.path.join(ROOT, "scenes", "textured_env.txt"))
+        for k, v in kw.items():
+            setattr(scene.settings, k, v)
+        r = Renderer(scene, device="cuda")
+        r.render(16)
+        mean = float(r.image().mean())
+        runs = [time_ms(r.step, 4, warm=0), time_ms(r.step, 4, warm=0)]
+        out[mode] = dict(mean=mean, ms=float(np.mean(runs)), runs=runs)
+        del r
+    gaps = dict(bilinear_vs_nearest=abs(out["bilinear"]["mean"]
+                                        - out["nearest"]["mean"]),
+                fast_vs_bilinear=abs(out["bilinear_fast"]["mean"]
+                                     - out["bilinear"]["mean"]),
+                fast_vs_nearest=abs(out["bilinear_fast"]["mean"]
+                                    - out["nearest"]["mean"]))
+    log(json.dumps(dict(check="textured_env 2048x2048 d8 16spp: filtering "
+                              "modes", **out, **gaps,
+                        limits=dict(bilinear_vs_nearest=BILINEAR_MEAN,
+                                    fast_vs_bilinear=FAST_MEAN), gpu=gpu)))
+    if (gaps["bilinear_vs_nearest"] >= BILINEAR_MEAN
+            or gaps["fast_vs_bilinear"] >= FAST_MEAN):
+        raise AssertionError(f"filtering modes' means: {gaps}")
+    return out
+
+
+def env_nee(outdir: str, gpu: str) -> dict:
+    """Env-map NEE on textured_env at 512x512 depth 8 (stratified): the
+    16-spp image mean within 1% of the plain render's (and the gap in
+    standard errors of the per-iteration means), the 8-spp RMSE of each
+    against a 256-spp plain reference of another seed, ms per iteration;
+    K2's any-hit mode bit for bit on the bounce-0 and bounce-1 env shadow
+    rays (unbounded occlusion queries). Then the mixed mode once, on a copy
+    with an emissive sphere: its 16-spp mean against the plain render's
+    within 1%."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    path = textured_copy(outdir, "textured_env", 512)
+    lit = textured_copy(outdir, "textured_env", 512, EMITTER, "_lit")
+    recs = {}
+    for mode, scene_path in (("env", path), ("mixed", lit)):
+        nee_s = load_scene(scene_path)
+        nee_s.settings.nee = nee_s.settings.stratified = True
+        r = Renderer(nee_s, device="cuda")
+        if r.route != "wavefront" or not r.cfg.nee_env or (
+                (r.cfg.nee_q == 0.0) != (mode == "env")):
+            raise AssertionError(f"{mode} NEE wiring: {r.cfg}")
+        zero_counts()
+        with capturing(P8, "traverse8",
+                       lambda *a, **k: k.get("any_hit", False)) as shadows:
+            per_it, nee8 = channel_means(r, 16, keep_at=8)
+        counts = read_counts()
+        plain_s = load_scene(scene_path)
+        plain_s.settings.stratified = True
+        plain = Renderer(plain_s, device="cuda")
+        plain_it, plain8 = channel_means(plain, 16, keep_at=8)
+        nee_m, plain_m = per_it.mean(0), plain_it.mean(0)
+        rel = np.abs(nee_m - plain_m) / plain_m
+        se = np.hypot(per_it.std(0), plain_it.std(0)) / 4.0
+        rec = dict(check=f"textured_env {mode} --nee 512x512 d8 16spp mean "
+                         "vs plain", nee=nee_m.tolist(),
+                   plain=plain_m.tolist(), rel_gap=rel.tolist(),
+                   gap_in_se=(np.abs(nee_m - plain_m) / se).tolist(),
+                   limit_rel=NEE_MEAN_REL, nee_q=r.cfg.nee_q,
+                   launches_16_iterations=counts, gpu=gpu)
+        if mode == "env":
+            ref_s = load_scene(path)
+            ref_s.settings.seed = 99
+            ref = Renderer(ref_s, device="cuda")
+            ref.render(256)
+            truth = ref.accum / 256
+            e_nee, e_plain = (float(((a / 8 - truth) ** 2).mean().sqrt())
+                              for a in (nee8, plain8))
+            runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=0)]
+            rec.update(rmse_8spp_nee=e_nee, rmse_8spp_plain=e_plain,
+                       rmse_ratio=e_nee / e_plain,
+                       reference="plain 256 spp, seed 99",
+                       ms_per_iteration=float(np.mean(runs)), runs=runs,
+                       **profile_one(r.step))
+            r.save(os.path.join(outdir, "textured_env_nee_512_16spp"))
+        log(json.dumps(rec))
+        if not np.isfinite(per_it).all() or (rel > NEE_MEAN_REL).any():
+            raise AssertionError(f"{mode} --nee mean {nee_m} vs plain "
+                                 f"{plain_m}")
+        if counts["k2_any_hit"] == 0 or counts["p1"] == 0:
+            raise AssertionError(f"{mode} --nee launches {counts}")
+        recs[mode] = dict(rec, shadows=shadows[:2], packed=r.packed_meshes[0])
+    return recs
+
+
+def card_vs_cpu(gpu: str) -> None:
+    """textured_env and textured_env_proc at 64x64 depth 8, one stratified
+    iteration on the card and on the CPU: at most 1% of the lanes
+    diverge."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    for name in ("textured_env", "textured_env_proc"):
+        imgs = []
+        for dev in ("cuda", "cpu"):
+            scene = sized(os.path.join(ROOT, "scenes", name + ".txt"), 64, 8)
+            scene.settings.stratified = True
+            imgs.append(Renderer(scene, device=dev).render(1).cpu())
+        compare_lanes(f"{name} 64x64 d8: card vs CPU", imgs[0], imgs[1],
+                      ATOL, FRAC)
+
+
+def textured_phases(outdir: str, gpu: str) -> dict:
+    """Slice D on the card: textured_env and textured_env_proc at their own
+    2048x2048 depth 8 (`textured_path`); P1 on the path's bounce-0 and
+    bounce-1 fused-table indices (`p1_on_path`); K2 on the torus, nearest
+    on the main path's bounce-0/1 rays and any-hit on env NEE's bounce-0/1
+    shadow rays (`k2_torus`); the filtering modes (`bilinear_modes`); env
+    and mixed NEE (`env_nee`); the card against the CPU (`card_vs_cpu`).
+    Returns P1's path numbers for the `kernels` line."""
+    main = textured_path("textured_env", outdir, gpu)
+    proc = textured_path("textured_env_proc", outdir, gpu)
+    p1 = p1_on_path(gpu, main["fetches"])
+    k2 = k2_torus(gpu, main["packed"], main["waves"], any_hit=False)
+    modes = bilinear_modes(gpu)
+    nee = env_nee(outdir, gpu)
+    k2_any = k2_torus(gpu, nee["env"]["packed"], nee["env"]["shadows"],
+                      any_hit=True)
+    card_vs_cpu(gpu)
+    log(json.dumps(dict(metric="textured_summary_ms_per_iteration",
+                        textured_env=main["ms"], textured_env_proc=proc["ms"],
+                        **{m: v["ms"] for m, v in modes.items()},
+                        env_nee_512=nee["env"]["ms_per_iteration"],
+                        k2_torus_nearest_ms=[k["held_ms"] for k in k2],
+                        k2_torus_any_hit_ms=[k["held_ms"] for k in k2_any],
+                        gpu=gpu)))
+    return dict(p1=p1, launches=main["counts"]["p1"])
+
+
 def traversal_bounds(gpu: str, p8, pb, waves: dict) -> dict:
     """(kernel, wavefront) -> the traversal's bound: each live ray's 7
     input floats (origin, direction, t_bound) and 7 output words (t,
@@ -1931,7 +2302,8 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
-    for path in (SCENE, GLASS, GOLDEN, MESH, LIGHTS, MANY, MANY256):
+    for path in (SCENE, GLASS, GOLDEN, MESH, LIGHTS, MANY, MANY256, TEXTURED,
+                 TEXTURED_PROC):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2081,8 +2453,27 @@ def main() -> int:
     # ---- 9b. direct lighting: NEE, RIS, ReSTIR, many lights -----------------
     nee_phases(args.outdir, gpu)
 
+    # ---- 9c. textures and environment lighting ------------------------------
+    tex = textured_phases(args.outdir, gpu)
+
     # ---- 10. the probes P1 and P2 -------------------------------------------
     probes = probe_phases(gpu)
+    # P1's entry: its launches and times on the texture path (bounce 0's
+    # fused-table indices), the probe's beside them
+    p1 = tex["p1"][0]
+    probe = probes[0]
+    probe.update(
+        launches=tex["launches"], ms=p1["value"], cold_ms=p1["cold_ms"],
+        plain_ms=p1["plain_ms"], bound_ms=p1["bound_ms"],
+        bound_by=p1["bound_by"], library_ms=p1["library_ms"],
+        library_cold_ms=p1["library_cold_ms"], instance=p1["instance"],
+        path="textured_env 2048x2048 d8, fused atlas+env table, bounce 0",
+        bounce1_ms=tex["p1"][1]["value"],
+        bounce1_cold_ms=tex["p1"][1]["cold_ms"],
+        bounce1_library_ms=tex["p1"][1]["library_ms"],
+        probe_launches=probe["launches"], probe_ms=probe["ms"],
+        probe_cold_ms=probe["cold_ms"], probe_plain_ms=probe["plain_ms"],
+        probe_bound_ms=probe["bound_ms"], probe_library_ms=probe["library_ms"])
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

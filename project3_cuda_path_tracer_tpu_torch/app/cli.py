@@ -13,7 +13,6 @@ import argparse
 import os
 import sys
 
-_SLICE_D = "slice D (textures and environment)"
 _SLICE_E = "slice E (integrator features)"
 _SLICE_F = "slice F (render services)"
 _SLICE_H = "slice H (the app)"
@@ -21,7 +20,7 @@ _SLICE_H = "slice H (the app)"
 UNPORTED_FLAGS = {
     "--sort": _SLICE_E, "--compact": _SLICE_E,
     "--russian-roulette": _SLICE_E, "--sampler": _SLICE_E, "--clamp": _SLICE_E, "--gamma": _SLICE_E,
-    "--aces": _SLICE_E, "--bilinear": _SLICE_D, "--bilinear-fast": _SLICE_D,
+    "--aces": _SLICE_E,
     "--adaptive": _SLICE_F, "--adaptive-epoch": _SLICE_F,
     "--denoise": _SLICE_F, "--checkpoint-every": _SLICE_F,
     "--resume": _SLICE_F, "--sharded": "slice G (sharding)",
@@ -37,8 +36,8 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m project3_cuda_path_tracer_tpu_torch",
-        description="Path tracer, PyTorch + CUDA port (primitive and mesh "
-                    "scenes)")
+        description="Path tracer, PyTorch + CUDA port (primitive, mesh "
+                    "and textured scenes)")
     p.add_argument("scene", help="scene file (reference text format)")
     p.add_argument("--iterations", type=int, default=None,
                    help="override the scene's ITERATIONS")
@@ -53,9 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stratified", action="store_true",
                    help="stratified sampling (per-pixel rotated lattice "
                         "camera and BSDF draws)")
+    p.add_argument("--bilinear", action="store_true",
+                   help="bilinear texture/env filtering (4 corner "
+                        "fetches)")
+    p.add_argument("--bilinear-fast", action="store_true",
+                   help="bilinear filtering through the pair planes (2 "
+                        "fetches, RGB565 atlas texels; implies "
+                        "--bilinear)")
     p.add_argument("--nee", action="store_true",
-                   help="next-event estimation: one area-light sample a "
-                        "bounce with one-sample MIS")
+                   help="next-event estimation: one light sample a bounce "
+                        "(area lights, the env map or both) with "
+                        "one-sample MIS")
     p.add_argument("--nee-ris", type=int, default=0, metavar="M",
                    help="RIS direct lighting: one shadow ray resampled "
                         "from M light candidates (implies --nee)")
@@ -99,6 +106,8 @@ def main(argv=None) -> int:
         st.trace_depth = args.depth
     st.antialias = not args.no_antialias
     st.stratified = args.stratified
+    st.bilinear = args.bilinear or args.bilinear_fast
+    st.bilinear_fast = args.bilinear_fast
     st.seed = args.seed
     st.nee = args.nee or args.nee_ris >= 2 or args.restir >= 1
     st.nee_ris = args.nee_ris

@@ -253,7 +253,9 @@ class InverseRenderer:
     Adam step of drift at a constant learning rate, so ``fit(steps)`` ends
     with ``polish_steps`` two-render unbiased steps on the same optimizer
     state (default POLISH_STEPS, capped at half the fit). Mesh scenes
-    recompute their hits differentiably. `device` is "cuda" or "cpu" and is
+    recompute their hits differentiably; scenes with textures, checkers,
+    bump or normal maps, an env map or the sky raise NotImplementedError
+    (textured training is not ported). `device` is "cuda" or "cpu" and is
     never chosen for the caller."""
 
     # Adam's momentum horizon is 1/(1-b1) = 10 steps; three times that
@@ -266,6 +268,12 @@ class InverseRenderer:
                  history: bool = True, polish_steps: Optional[int] = None,
                  device: str = "cuda"):
         integ.require_wavefront(scene)
+        textured = integ.texture_features(scene)
+        if textured is not None:
+            raise NotImplementedError(
+                f"training through a scene with {textured} is not ported "
+                "yet: gradients through textured shading wait (ROADMAP.md "
+                "Queue 1, textured training)")
         self.device = resolve_device(device)
         dev = self.device
         w, h = scene.camera.resolution
@@ -278,8 +286,7 @@ class InverseRenderer:
             geom_types=tuple(int(t) for t in types),
             mesh_ids=tuple(int(m) for m in scene.geoms.mesh_id.tolist()),
             differentiable_mesh=has_mesh,
-            glossy=bool((scene.materials.specular_exponent > 0).any()),
-            sky=bool(float(scene.textures.sky[0]) > 0))
+            glossy=bool((scene.materials.specular_exponent > 0).any()))
         self.scene = scene
         self.target = torch.as_tensor(np.asarray(target, np.float32),
                                       device=dev)

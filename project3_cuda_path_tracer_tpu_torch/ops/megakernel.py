@@ -66,22 +66,25 @@ SCHEDULES = {"persistent": 0, "grid": 1}
 
 
 def _unsupported(scene: T.Scene) -> Optional[str]:
-    """Why the kernel (and so the port's renderer) cannot render `scene`,
-    or None. The JAX `supports()` (megakernel.py:58-79) plus three checks
-    the Pallas kernel lacks: it never reads SPECEX, the procedural sky or
-    a constant environment, and renders such scenes without them."""
+    """Why the kernel cannot render `scene` (the renderer then takes the
+    wavefront route), or None. The JAX `supports()` (megakernel.py:58-79)
+    plus four checks the Pallas kernel lacks: it never reads SPECEX, the
+    procedural checker, the procedural sky or a constant environment, and
+    renders such scenes without them."""
     types = scene.geoms.type.cpu().numpy()
     if types.shape[0] > MAX_GEOMS:
         return f"{types.shape[0]} geoms (at most {MAX_GEOMS})"
     if np.isin(types, (T.MESH, T.SDF)).any():
         return "mesh or SDF geoms"
     tx = scene.textures
-    if tx.atlas.shape[0] > 1 or tx.atlas.shape[1] > 1:
+    if tx.has_atlas:
         return "a texture atlas"
-    if tx.env.shape[0] > 1 or tx.env.shape[1] > 1:
+    if tx.has_env:
         return "an environment map"
     if (tx.bump[:, 0] > 0).any() or (tx.nrm_id >= 0).any():
         return "bump or normal maps"
+    if (tx.checker_scale > 0).any():
+        return "a procedural checker"
     mt = scene.materials
     if mt.dispersion is not None and (mt.dispersion > 0).any():
         return "spectral dispersion"
@@ -95,8 +98,9 @@ def _unsupported(scene: T.Scene) -> Optional[str]:
 
 
 def supports(scene: T.Scene) -> bool:
-    """Primitive (cube/sphere) scenes of at most 32 geoms, untextured, with
-    no environment, sky, glossy lobe, dispersion, bump or normal map."""
+    """Primitive (cube/sphere) scenes of at most 32 geoms, untextured and
+    unchecked, with no environment, sky, glossy lobe, dispersion, bump or
+    normal map."""
     return _unsupported(scene) is None
 
 
@@ -192,10 +196,11 @@ def iteration_plain(accum: torch.Tensor, scene_table: torch.Tensor, cfg,
                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """accum += one iteration's radiance, in torch ops (in place)."""
     # the integrator imports this module for Renderer
-    from ..render.integrator import trace_wavefront
+    from ..render.integrator import to_device, trace_wavefront
     G = len(cfg.geom_types)
     materials, cam, geoms = unpack_scene(scene_table, G)
-    textures = T.Textures.none(int(materials.color.shape[0]))
+    textures = to_device(T.Textures.none(int(materials.color.shape[0])),
+                         scene_table.device)
     gen = None
     if sampler == "philox":
         gen = torch.Generator(device=scene_table.device)

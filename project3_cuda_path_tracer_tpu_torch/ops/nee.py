@@ -1,8 +1,7 @@
-"""Next-event estimation, the area-light half: the light table, its
-sampler and the shadow-ray set-up.
+"""Next-event estimation: the area-light table, its sampler and the
+shadow-ray set-up, and the env map's alias table and sampler.
 
-Counterpart of the area-light functions of project3_cuda_path_tracer_tpu/
-ops/nee.py. At every diffuse-capable hit the integrator samples one point
+Counterpart of project3_cuda_path_tracer_tpu/ops/nee.py. At every diffuse-capable hit the integrator samples one point
 uniformly by area over the union of the scene's emissive surfaces, casts a
 shadow ray through `ops.wavefront.intersect_planar(any_hit=True, max_t=)`
 and adds the area-form direct term in `ops.wavefront.shade_planar`, weighted
@@ -17,8 +16,15 @@ on a face turned away is killed by its own occlusion test.
 The light table is static, built on the host from the scene's transforms
 (which the train step never optimises); the emitted radiance is read from
 the traced material table at shade time, so NEE stays differentiable in the
-lights' colour and emittance. The env-map sampler (`build_env_alias`,
-`sample_env_planar`) waits for slice D.
+lights' colour and emittance.
+
+Env-map NEE samples a texel of the equirect env map by the alias method
+(`build_env_alias`, texels weighted by luminance times solid angle) and a
+direction uniform in solid angle inside it (`sample_env_planar`), so that
+the pdf of any direction is lum(its texel) * C; the BSDF side's MIS weight
+on an env miss is then free (`env_lum` of the texel already fetched). The
+alias table's fetches and the env texel's go through ops/texfetch.py (P1 on
+the card).
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ import numpy as np
 import torch
 
 from .vec import V3
+from . import texfetch
 from . import vec
+from . import wavefront as wf
 from ..scene import types as T
 
 # Face record layout (floats):
@@ -167,3 +175,82 @@ def shadow_setup(p: V3, lp: V3, ln: V3, total_area: float):
     cos_l = torch.abs(vec.dot(ln, wl))
     geom = cos_l * total_area / (dist * dist)
     return wl, dist, geom
+
+
+_LUM = (0.2126, 0.7152, 0.0722)
+
+
+def build_env_alias(env: np.ndarray):
+    """The alias table of env-map importance sampling (the JAX
+    `build_env_alias`, Vose's construction, bit for bit).
+
+    `env` is the [He,We,3] equirect radiance image. Texel weights are
+    luminance times the texel's exact solid angle, so the solid-angle pdf
+    of a direction is lum(its texel) * C with C = We / (2 pi sum(lum *
+    dcos)). Returns (alias [T] int32, prob [T] float32, C) with T = He*We,
+    or None for a black or absent env."""
+    he, we = env.shape[0], env.shape[1]
+    if he * we <= 1:
+        return None
+    lum = (env[..., 0] * _LUM[0] + env[..., 1] * _LUM[1]
+           + env[..., 2] * _LUM[2]).astype(np.float64)
+    # the exact solid angle of a row: the integral of sin over its band
+    edges = np.cos(np.arange(he + 1, dtype=np.float64) * math.pi / he)
+    dcos = edges[:-1] - edges[1:]
+    w = (lum * dcos[:, None]).reshape(-1)
+    total = w.sum()
+    if total <= 0:
+        return None
+    t = w.size
+    p = w / total * t
+    alias = np.arange(t, dtype=np.int64)
+    prob = p.copy()
+    small = [i for i in np.nonzero(p < 1.0)[0]]
+    large = [i for i in np.nonzero(p >= 1.0)[0]]
+    while small and large:
+        s, big = small.pop(), large.pop()
+        prob[s] = p[s]
+        alias[s] = big
+        p[big] = (p[big] + p[s]) - 1.0
+        (small if p[big] < 1.0 else large).append(big)
+    for i in small + large:
+        prob[i] = 1.0
+    c = we / (2.0 * math.pi * total)
+    return alias.astype(np.int32), prob.astype(np.float32), float(c)
+
+
+def sample_env_planar(textures: T.Textures, u_idx: torch.Tensor,
+                      u_acc: torch.Tensor, u_x: torch.Tensor,
+                      u_y: torch.Tensor):
+    """One env-map direction a lane from the alias table: (wl V3, le V3).
+
+    u_idx picks a texel slot, u_acc keeps it or takes its alias, and the
+    direction inverts the equirect mapping of
+    ops/wavefront._env_flat_index with cos(theta) linear inside the texel's
+    band (uniform in solid angle, which makes pdf = env_lum(le) * C exact).
+    The slot's probability, its alias and the texel are three fetches
+    through ops/texfetch.py."""
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    t = he * we
+    i = torch.clamp((u_idx * t).to(torch.int32), 0, t - 1)
+    take_alias = u_acc >= texfetch.take_f32(textures.env_prob, i)
+    idx = torch.where(take_alias, texfetch.take_u32(textures.env_alias, i), i)
+    y = torch.div(idx, we, rounding_mode="floor").to(torch.float32)
+    x = torch.remainder(idx, we).to(torch.float32)
+    c0 = torch.cos(y * (math.pi / he))
+    c1 = torch.cos((y + 1.0) * (math.pi / he))
+    ct = c0 + u_y * (c1 - c0)
+    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    a = ((x + u_x) / we - 0.5) * (2.0 * math.pi)
+    wl = V3(st * torch.sin(a), ct, -st * torch.cos(a))
+    if texfetch.full(textures.env_packed, t):
+        le = wf._unpack_rgbe(texfetch.take_u32(textures.env_packed, idx),
+                             textures.env_enabled)
+    else:
+        le = wf._take_f32x3(textures.env, idx)
+    return wl, le
+
+
+def env_lum(v: V3) -> torch.Tensor:
+    """The luminance plane of build_env_alias' texel weights."""
+    return v.x * _LUM[0] + v.y * _LUM[1] + v.z * _LUM[2]

@@ -7,12 +7,17 @@ stages are the plain version of the CUDA megakernel (csrc/megakernel.cu):
 `render.integrator.trace_wavefront` chains them into one iteration.
 
 Scope: cubes, spheres and triangle meshes (through the BVH traversal
-kernels of ops/bvh8.py and ops/pallas_bvh.py), untextured albedo, a constant
-environment, the optional glossy Phong lobe, Fresnel refraction, area-light
-NEE with one-sample MIS (ops/nee.py: the shadow rays are occlusion queries
-of `intersect_planar`, the MIS terms live in `shade_planar`), and the
-batched sphere pass of many-light scenes. SDFs, textures, the procedural
-sky, env-map NEE, dispersion, bump and normal maps come with later slices.
+kernels of ops/bvh8.py and ops/pallas_bvh.py) with their uv and, for normal
+maps, uv tangents; textured albedo (the atlas, nearest or bilinear, and
+--bilinear-fast's pair planes), the procedural checker, bump and
+tangent-space normal maps; a constant or equirect environment and the
+procedural sky; the optional glossy Phong lobe, Fresnel refraction; direct
+lighting from area lights, the env map or both with one-sample MIS
+(ops/nee.py: the shadow rays are occlusion queries of `intersect_planar`,
+the MIS terms live in `shade_planar`), and the batched sphere pass of
+many-light scenes. Every 32-bit texel fetch goes through
+`ops.texfetch.take_u32` (kernel P1 on the card). SDFs and dispersion come
+with slice E.
 
 Reference: src/intersections.h:27-144 (slab + quadratic in object space,
 world-distance t, 1e-4 back-off) and scatterRay, src/interactions.h:44-79.
@@ -26,6 +31,7 @@ import torch
 
 from . import bvh8 as B8
 from . import pallas_bvh as PB
+from . import texfetch
 from . import vec
 from .vec import V3
 from ..scene import types as T
@@ -68,8 +74,12 @@ _R2A = (0.7548776662466927, 0.5698402909980532)
 _R3A = (0.8191725133961645, 0.6710436067037893, 0.5497004779019703)
 _R4A = (0.8566748838545029, 0.7338918566271259,
         0.6287067210378086, 0.5385972572236101)
+_R8A = (0.921599319633983, 0.8493453059498204,
+        0.7827560560976716, 0.721387448738994,
+        0.6648301819503516, 0.6127070433575812,
+        0.5646703942932961, 0.5203998511981547)
 _PHI_INV = 0.6180339887498949
-_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 3: _R3A, 4: _R4A}
+_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 3: _R3A, 4: _R4A, 8: _R8A}
 
 # "depth" slot of the camera dims (distinct from every bounce depth)
 CAMERA_SLOT = 0x7FFFFFFF
@@ -80,6 +90,8 @@ SALT_LENS = 0x51633E2D
 SALT_TIME = 0x3504F333
 SALT_BOUNCE = 0x2545F491
 SALT_NEE_AREA = 0x7F4A7C15
+SALT_NEE_ENV = 0x1D872B41
+SALT_NEE_MIXED = 0x5B7E9D23
 
 
 def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
@@ -172,8 +184,10 @@ class HitP(NamedTuple):
     """Planar hit record. `point` is the 1e-4 backed-off hit point
     (getPointOnRay, src/intersections.h:27-29) that reflected and diffuse
     rays continue from; `surf` is the exact surface point that transmitted
-    rays push through. `u`, `v` are the mesh hit's interpolated texture
-    coordinates (0 on primitives: their uv comes with the texture slice)."""
+    rays push through. `u`, `v` are the texture coordinates: a cube face's
+    planar uv, a sphere's equirect uv, a mesh hit's interpolated uv. `tan`
+    is the world-space dP/du (unnormalised), only under
+    `intersect_planar(tangents=True)`: the normal map's frame."""
     t: torch.Tensor        # [N]; -1 = miss (after intersect_planar)
     normal: V3
     mat_id: torch.Tensor   # [N] int64
@@ -182,6 +196,7 @@ class HitP(NamedTuple):
     u: torch.Tensor        # [N]
     v: torch.Tensor        # [N]
     outside: torch.Tensor  # [N] bool
+    tan: Optional[V3] = None
 
 
 def _nz(c: torch.Tensor) -> torch.Tensor:
@@ -193,7 +208,8 @@ def _nz(c: torch.Tensor) -> torch.Tensor:
 
 def _box_local_planar(qo: V3, qd: V3):
     """Unit-cube slab test (src/intersections.h:48-90) with the axis
-    argmax/argmin written as comparison selects (x > y > z tie priority)."""
+    argmax/argmin written as comparison selects (x > y > z tie priority).
+    Also returns the face masks ex, ez, which pick the face's uv axes."""
     inv = V3(1.0 / _nz(qd.x), 1.0 / _nz(qd.y), 1.0 / _nz(qd.z))
     t1 = V3((-0.5 - qo.x) * inv.x, (-0.5 - qo.y) * inv.y,
             (-0.5 - qo.z) * inv.z)
@@ -216,7 +232,7 @@ def _box_local_planar(qo: V3, qd: V3):
     zero = torch.zeros_like(qo.x)
     n_local = V3(torch.where(ex, sign.x, zero), torch.where(ey, sign.y, zero),
                  torch.where(ez, sign.z, zero))
-    return t_obj, hit, outside, n_local
+    return t_obj, hit, outside, n_local, ex, ez
 
 
 def _sphere_local_planar(qo: V3, qd: V3):
@@ -253,8 +269,11 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
-                          g: int, gtype: int) -> HitP:
-    """One primitive against the whole wavefront, elementwise."""
+                          g: int, gtype: int,
+                          tangents: bool = False) -> HitP:
+    """One primitive against the whole wavefront, elementwise, with its uv
+    (a cube face parameterised by two object axes, a sphere by longitude
+    and latitude) and, with `tangents`, dP/du in the world."""
     inv = geoms.inverse_transform[g]
     fwd = geoms.transform[g]
     inv_tr = geoms.inverse_transpose[g]
@@ -266,7 +285,7 @@ def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     qd = vec.normalize(vec.xform_dir(inv, d))
 
     if gtype == T.CUBE:
-        t_obj, hit, outside, n_local = _box_local_planar(qo, qd)
+        t_obj, hit, outside, n_local, ex, ez = _box_local_planar(qo, qd)
     else:
         t_obj, hit, outside = _sphere_local_planar(qo, qd)
 
@@ -281,17 +300,35 @@ def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                   sf_world.z + velz * times)
     t_world = vec.norm(o - ip_world)
 
-    if gtype != T.CUBE:
+    tan = None
+    zero = torch.zeros_like(t_world)
+    if gtype == T.CUBE:
+        u = torch.where(ex, ip_obj.y, ip_obj.x) + 0.5
+        v = torch.where(ez, ip_obj.y, ip_obj.z) + 0.5
+        if tangents:
+            # dP_obj/du follows the uv rule: the x faces run u along object
+            # y, the others along object x
+            one = torch.ones_like(zero)
+            tan = vec.xform_dir(fwd, V3(torch.where(ex, zero, one),
+                                        torch.where(ex, one, zero), zero))
+    else:
         flip = torch.where(outside, 1.0, -1.0).to(F32)
         n_local = V3(ip_obj.x * flip, ip_obj.y * flip, ip_obj.z * flip)
+        u = 0.5 + torch.atan2(ip_obj.z, ip_obj.x) / (2 * math.pi)
+        # the 1e-7 inset keeps asin's derivative finite at the poles
+        v = 0.5 + torch.asin(_clip(ip_obj.y / 0.5, -1.0 + 1e-7,
+                                   1.0 - 1e-7)) / math.pi
+        if tangents:
+            # the equirect dP_obj/du ~ (-z, 0, x); it vanishes at the poles,
+            # where shade_planar takes its fallback frame
+            tan = vec.xform_dir(fwd, V3(-ip_obj.z, zero, ip_obj.x))
     normal = vec.normalize(vec.xform_dir(inv_tr, n_local))
-    zero = torch.zeros_like(t_world)
     return HitP(t=torch.where(hit, t_world, torch.full_like(t_world, BIG)),
                 normal=normal,
                 mat_id=geoms.material_id[g].to(torch.int64).expand_as(
                     t_world),
-                point=ip_world, surf=sf_world, u=zero, v=zero,
-                outside=outside)
+                point=ip_world, surf=sf_world, u=u, v=v,
+                outside=outside, tan=tan)
 
 
 def mesh_query(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms, g: int,
@@ -327,7 +364,8 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      alive: Optional[torch.Tensor] = None,
                      meshes: Optional[T.MeshBundle] = None,
                      differentiable: bool = False,
-                     tri_offset=0, any_hit: bool = False) -> HitP:
+                     tri_offset=0, any_hit: bool = False,
+                     tangents: bool = False) -> HitP:
     """MESH geom g through its packed BVH: kernel K2 for a PackedMesh8, K3
     for a binary PackedMesh (the JAX `_mesh_hit_packet`).
 
@@ -344,7 +382,11 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     object-space ray. The hit point is rebuilt in object space as
     qo + (t - 1e-4)*qd with a fused multiply-add (the primitive path's
     rule, ROADMAP F3), taken back to world space with the velocity shift,
-    and the normal is flipped two-sided toward the incoming ray."""
+    and the normal is flipped two-sided toward the incoming ray.
+
+    `tangents` adds the winning triangle's uv tangent, dP/du = (e1 dv2 -
+    e2 dv1) / (du1 dv2 - du2 dv1) in the world (0 where the uv map is
+    degenerate), read from the bundle `meshes` and detached."""
     qo, qd, t_bound = mesh_query(o, d, times, geoms, g, t_world_bound, alive)
     q_o = tuple(c.detach() for c in qo)
     q_d = tuple(c.detach() for c in qd)
@@ -402,10 +444,27 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                                          V3(*nl)))
     facing = vec.dot(normal, d) < 0   # two-sided: open surfaces
     normal = vec.where(facing, normal, -normal)
+    tan = None
+    if tangents:
+        with torch.no_grad():
+            tri_g = torch.clamp(tri, min=0).to(torch.int64) + tri_offset
+            e1t = vec.from_rows(meshes.tri_e1[tri_g])
+            e2t = vec.from_rows(meshes.tri_e2[tri_g])
+            uv0, uv1, uv2 = (meshes.tri_uv0[tri_g], meshes.tri_uv1[tri_g],
+                             meshes.tri_uv2[tri_g])
+            du1, dv1 = uv1[:, 0] - uv0[:, 0], uv1[:, 1] - uv0[:, 1]
+            du2, dv2 = uv2[:, 0] - uv0[:, 0], uv2[:, 1] - uv0[:, 1]
+            det = du1 * dv2 - du2 * dv1
+            ok = det.abs() > 1e-12
+            inv_det = torch.where(ok, 1.0 / torch.where(
+                ok, det, torch.ones_like(det)), torch.zeros_like(det))
+            tan = vec.xform_dir(fwd, V3(*((a * dv2 - b * dv1) * inv_det
+                                          for a, b in zip(e1t, e2t))))
     return HitP(t=t_world, normal=normal,
                 mat_id=geoms.material_id[g].to(torch.int64).expand_as(
                     t_world),
-                point=ip_world, surf=sf_world, u=u, v=v, outside=facing)
+                point=ip_world, surf=sf_world, u=u, v=v, outside=facing,
+                tan=tan)
 
 
 # Spheres tested per step of the batched sphere pass: each step computes a
@@ -414,7 +473,8 @@ SPHERE_BATCH_K = 16
 
 
 def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
-                            geoms: T.Geoms, idxs: Sequence[int]) -> HitP:
+                            geoms: T.Geoms, idxs: Sequence[int],
+                            tangents: bool = False) -> HitP:
     """Every sphere of `idxs` against the wavefront in one blocked pass (the
     JAX `_batched_spheres_planar`): the many-light path, where the per-geom
     unroll would enqueue one primitive test per emitter.
@@ -427,7 +487,7 @@ def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
     semantics are `_primitive_hit_planar`'s for a sphere: the first sphere
     with the smallest positive world distance wins, the point backs off
     RAY_EPS object units (RAY_EPS * 2r in the world), interior hits flip
-    the normal."""
+    the normal. With `tangents` the tangent is 0 (no lane reads it)."""
     dev = o.x.device
     gi = torch.as_tensor(list(idxs), dtype=torch.int64, device=dev)
     tm = geoms.transform[gi]                              # [B,4,4]
@@ -485,9 +545,11 @@ def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
     flip = torch.where(outside, 1.0, -1.0).to(F32)
     normal = vec.normalize(V3(nr.x * flip, nr.y * flip, nr.z * flip))
     half = torch.full((n,), 0.5, dtype=F32, device=dev)  # uv: unread
+    zero = torch.zeros_like(half)
     return HitP(t=torch.where(got, t_best, torch.full_like(t_best, BIG)),
                 normal=normal, mat_id=mid[iw], point=point, surf=surf,
-                u=half, v=half, outside=outside)
+                u=half, v=half, outside=outside,
+                tan=V3(zero, zero, zero) if tangents else None)
 
 
 def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
@@ -498,7 +560,8 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      differentiable_mesh: bool = False,
                      any_hit: bool = False,
                      max_t: Optional[torch.Tensor] = None,
-                     sphere_batch: Sequence[int] = ()) -> HitP:
+                     sphere_batch: Sequence[int] = (),
+                     tangents: bool = False) -> HitP:
     """Nearest hit over all geoms (src/pathtrace.cu:176-199): a strict `<`
     merge in geom order, then misses become t = -1, material 0.
 
@@ -513,7 +576,10 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     Occlusion queries (NEE shadow rays): `max_t` ([N]) caps the search, so
     a hit beyond it reports a miss (t = -1) and mesh subtrees beyond it are
     pruned; `any_hit` runs the 8-wide traversal in its occlusion mode. Only
-    `t > 0` of such a query means anything."""
+    `t > 0` of such a query means anything.
+
+    `tangents` fills `HitP.tan` (normal maps): a mesh hit's tangent comes
+    from the bundle `meshes`, a miss keeps a zero tangent."""
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g] if g < len(mesh_ids) else -1
@@ -521,8 +587,9 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 raise ValueError(f"mesh geom {g} has no packed mesh "
                                  f"(mesh id {mid}, {len(packed_meshes)} "
                                  "packed)")
-            if differentiable_mesh and meshes is None:
-                raise ValueError("differentiable_mesh needs the MeshBundle")
+            if (differentiable_mesh or tangents) and meshes is None:
+                raise ValueError("differentiable_mesh and tangents need the "
+                                 "MeshBundle")
         elif gtype not in (T.CUBE, T.SPHERE):
             raise NotImplementedError(
                 "only cube, sphere and mesh geoms are ported (SDFs: "
@@ -536,7 +603,8 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 mat_id=torch.zeros((n,), dtype=torch.int64,
                                    device=o.x.device),
                 point=V3(z, z, z), surf=V3(z, z, z), u=z, v=z,
-                outside=torch.ones((n,), dtype=torch.bool, device=o.x.device))
+                outside=torch.ones((n,), dtype=torch.bool, device=o.x.device),
+                tan=V3(z, z, z) if tangents else None)
 
     def merge(best: HitP, cand: HitP) -> HitP:
         closer = cand.t < best.t
@@ -547,16 +615,18 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                     surf=vec.where(closer, cand.surf, best.surf),
                     u=torch.where(closer, cand.u, best.u),
                     v=torch.where(closer, cand.v, best.v),
-                    outside=torch.where(closer, cand.outside, best.outside))
+                    outside=torch.where(closer, cand.outside, best.outside),
+                    tan=(vec.where(closer, cand.tan, best.tan) if tangents
+                         else None))
 
     batched = set(sphere_batch)
     if batched:
         best = merge(best, _batched_spheres_planar(o, d, times, geoms,
-                                                   sphere_batch))
+                                                   sphere_batch, tangents))
     for g, gtype in enumerate(geom_types):
         if gtype != T.MESH and g not in batched:
             best = merge(best, _primitive_hit_planar(o, d, times, geoms, g,
-                                                     gtype))
+                                                     gtype, tangents))
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g]
@@ -565,8 +635,8 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 t_world_bound=best.t, alive=alive, meshes=meshes,
                 differentiable=differentiable_mesh,
                 tri_offset=(meshes.mesh_tri_offset[mid].to(torch.int64)
-                            if differentiable_mesh else 0),
-                any_hit=any_hit))
+                            if differentiable_mesh or tangents else 0),
+                any_hit=any_hit, tangents=tangents))
     miss = best.t >= t_init
     return best._replace(t=torch.where(miss, -1.0, best.t),
                          mat_id=torch.where(miss, 0, best.mat_id))
@@ -593,6 +663,201 @@ def _mat_select(table: torch.Tensor, mat_id: torch.Tensor):
     if table.ndim == 1:
         return rows
     return V3(rows[:, 0], rows[:, 1], rows[:, 2])
+
+
+# ---------------------------------------------------------------------------
+# Texel fetch helpers (the JAX ops/wavefront.py:928-1124). Indices are int32
+# and every 32-bit table take goes through ops.texfetch.take_u32.
+# ---------------------------------------------------------------------------
+
+def _between(x: torch.Tensor, lo: float, hi: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(x, lo, hi) with a per-lane upper bound."""
+    return torch.minimum(torch.clamp(x, min=lo), hi)
+
+
+def _rect_select(textures: T.Textures, mat_id, rect=None, tid_table=None):
+    """The material's atlas rect (x, y, w, h) as float32 planes, and its
+    texture id plane; `rect`/`tid_table` default to the colour textures'."""
+    rect = textures.rect if rect is None else rect
+    tid_table = textures.tex_id if tid_table is None else tid_table
+    rf = rect.to(F32)
+    return (*(_mat_select(rf[:, i], mat_id) for i in range(4)),
+            _mat_select(tid_table.to(F32), mat_id))
+
+
+def _atlas_flat_index(textures: T.Textures, mat_id, u, v, rect=None,
+                      tid_table=None):
+    """(flat texel index [N] int32, textured mask) of the nearest atlas
+    fetch. Normal maps pass textures.nrm_rect / nrm_id."""
+    rx, ry, rw, rh, tid = _rect_select(textures, mat_id, rect, tid_table)
+    uu = u - torch.floor(u)
+    vv = v - torch.floor(v)
+    xi = rx + _between(torch.floor(uu * rw), 0.0, _max(rw - 1, 0.0))
+    yi = ry + _between(torch.floor((1.0 - vv) * rh), 0.0, _max(rh - 1, 0.0))
+    ha, wa = textures.atlas.shape[0], textures.atlas.shape[1]
+    flat = (torch.clamp(yi, 0, ha - 1) * wa
+            + torch.clamp(xi, 0, wa - 1)).to(torch.int32)
+    return flat, tid >= 0
+
+
+def _unpack_rgb8(p: torch.Tensor) -> V3:
+    """R8G8B8 texels (int32 bits) -> linear RGB, equal to the float32 atlas
+    (utils/image.pack_rgb8)."""
+    return V3((p & 0xFF).to(F32) / 255.0, ((p >> 8) & 0xFF).to(F32) / 255.0,
+              ((p >> 16) & 0xFF).to(F32) / 255.0)
+
+
+def _env_flat_index(textures: T.Textures, d: V3) -> torch.Tensor:
+    """Flat equirect texel index [N] int32 of the nearest env fetch."""
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    u = 0.5 + torch.atan2(d.x, -d.z) / (2.0 * math.pi)
+    v = torch.acos(torch.clamp(d.y, -1.0, 1.0)) / math.pi
+    xi = torch.clamp((u * we).to(torch.int32), 0, we - 1)
+    yi = torch.clamp((v * he).to(torch.int32), 0, he - 1)
+    return yi * we + xi
+
+
+def _atlas_bilinear_indices(textures: T.Textures, mat_id, u, v):
+    """Four corner indices (x0y0, x1y0, x0y1, x1y1; int32), the fractions
+    and the textured mask of a bilinear atlas fetch (--bilinear): texel
+    centres at (x + 0.5)/w, corners clamped inside the material's rect.
+    Left of the first centre fu collapses to 0, so that the pair plane
+    (--bilinear-fast), which always returns (t0, t1), reproduces the
+    clamped fetch."""
+    rx, ry, rw, rh, tid = _rect_select(textures, mat_id)
+    uu = u - torch.floor(u)
+    vv = v - torch.floor(v)
+    xf = uu * rw - 0.5
+    yf = (1.0 - vv) * rh - 0.5
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    fu = torch.where(x0 < 0.0, torch.zeros_like(xf), xf - x0)
+    fv = yf - y0
+    hi_x = _max(rw - 1, 0.0)
+    hi_y = _max(rh - 1, 0.0)
+    ha, wa = textures.atlas.shape[0], textures.atlas.shape[1]
+
+    def at(xc, yc):
+        xi = rx + _between(xc, 0.0, hi_x)
+        yi = ry + _between(yc, 0.0, hi_y)
+        return (torch.clamp(yi, 0, ha - 1) * wa
+                + torch.clamp(xi, 0, wa - 1)).to(torch.int32)
+
+    return (at(x0, y0), at(x0 + 1, y0), at(x0, y0 + 1), at(x0 + 1, y0 + 1),
+            fu, fv, tid >= 0)
+
+
+def _env_bilinear_indices(textures: T.Textures, d: V3):
+    """Four corner indices (int32) and the fractions of a bilinear
+    equirect fetch: longitude wraps, latitude clamps at the poles (the
+    1e-7 inset keeps acos's derivative finite straight up and down)."""
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    u = 0.5 + torch.atan2(d.x, -d.z) / (2.0 * math.pi)
+    v = torch.acos(torch.clamp(d.y, -1.0 + 1e-7, 1.0 - 1e-7)) / math.pi
+    xf = u * we - 0.5
+    yf = v * he - 0.5
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    fu = xf - x0
+    fv = yf - y0
+
+    def at(xc, yc):
+        xi = torch.remainder(xc, we)
+        yi = torch.clamp(yc, 0, he - 1)
+        return (yi * we + xi).to(torch.int32)
+
+    return (at(x0, y0), at(x0 + 1, y0), at(x0, y0 + 1), at(x0 + 1, y0 + 1),
+            fu, fv)
+
+
+def _unpack_565pair(p: torch.Tensor):
+    """One atlas_pair texel -> (texel, its right neighbour) as linear RGB
+    at RGB565 precision. The masks after each arithmetic shift make the
+    int32 sign extension harmless."""
+    def one(q):
+        return V3((q & 31).to(F32) / 31.0, ((q >> 5) & 63).to(F32) / 63.0,
+                  ((q >> 11) & 31).to(F32) / 31.0)
+    return one(p), one(p >> 16)
+
+
+def _pow2(biased: torch.Tensor) -> torch.Tensor:
+    """2^(biased - 127) as float32, built from its exponent bits (exact;
+    the argument is clamped to the normal range by the callers)."""
+    return (biased << 23).view(F32)
+
+
+def _unpack_envpair(p: torch.Tensor, scale: torch.Tensor):
+    """One env_pair texel -> (texel, its right neighbour) as linear HDR
+    RGB (utils/image.pack_env_pair): two 12-bit 4/4/4 texels sharing one
+    8-bit exponent E, channel = (m + 0.5) * 2^(E-132); E = 0 is black."""
+    ex = (p >> 24) & 0xFF
+    s = torch.where(ex > 0, _pow2(torch.clamp(ex - 5, 1, 254)),
+                    torch.zeros((), dtype=F32, device=p.device)) * scale
+
+    def one(t):
+        return V3(((t & 15).to(F32) + 0.5) * s,
+                  (((t >> 4) & 15).to(F32) + 0.5) * s,
+                  (((t >> 8) & 15).to(F32) + 0.5) * s)
+    return one(p), one(p >> 12)
+
+
+def _bilerp(c00: V3, c10: V3, c01: V3, c11: V3, fu, fv) -> V3:
+    a = V3(*(p + (q - p) * fu for p, q in zip(c00, c10)))
+    b = V3(*(p + (q - p) * fu for p, q in zip(c01, c11)))
+    return V3(*(p + (q - p) * fv for p, q in zip(a, b)))
+
+
+def _unpack_rgbe(p: torch.Tensor, scale: torch.Tensor) -> V3:
+    """Radiance RGBE texels -> linear RGB, equal to the float32 env map
+    (utils/image.pack_rgbe): (m + 0.5) * 2^(E-136), the power of two built
+    from its bits; the parser's round-trip guard refuses assets whose
+    texels fall below the normal range."""
+    ex = (p >> 24) & 0xFF
+    s = torch.where(ex > 0, _pow2(torch.clamp(ex - 9, 1, 254)),
+                    torch.zeros((), dtype=F32, device=p.device)) * scale
+    return V3(((p & 0xFF).to(F32) + 0.5) * s,
+              (((p >> 8) & 0xFF).to(F32) + 0.5) * s,
+              (((p >> 16) & 0xFF).to(F32) + 0.5) * s)
+
+
+def _take_f32x3(image: torch.Tensor, flat: torch.Tensor) -> V3:
+    """Three float32 takes from an [H,W,3] image: the form of sources whose
+    packed plane does not round-trip (the JAX package computes it outside
+    any Pallas kernel, so it stays torch indexing)."""
+    idx = flat.long()
+    return V3(*(image[:, :, c].reshape(-1)[idx] for c in range(3)))
+
+
+def _sample_texture_planar(textures: T.Textures, mat_id, u, v,
+                           base: V3) -> V3:
+    """Nearest atlas fetch: one packed take (or three float32 takes), the
+    material colour `base` where the material is untextured."""
+    flat, textured = _atlas_flat_index(textures, mat_id, u, v)
+    ha, wa = textures.atlas.shape[0], textures.atlas.shape[1]
+    if texfetch.full(textures.atlas_packed, ha * wa):
+        rgb = _unpack_rgb8(texfetch.take_u32(textures.atlas_packed, flat))
+    else:
+        rgb = _take_f32x3(textures.atlas, flat)
+    return vec.where(textured, rgb, base)
+
+
+def _sample_env_planar(textures: T.Textures, d: V3) -> V3:
+    """Nearest equirect env fetch in direction d."""
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    flat = _env_flat_index(textures, d)
+    scale = textures.env_enabled
+    if texfetch.full(textures.env_packed, he * we):
+        return _unpack_rgbe(texfetch.take_u32(textures.env_packed, flat),
+                            scale)
+    return V3(*(c * scale for c in _take_f32x3(textures.env, flat)))
+
+
+def _fused(table: torch.Tensor, texels: int) -> torch.Tensor:
+    """A fused atlas+env table (`ops.texfetch.fuse`), which must exist."""
+    if table.shape[0] != texels:
+        raise ValueError("the fused atlas+env table is missing: build it "
+                         "once with ops.texfetch.fuse(textures)")
+    return table
 
 
 def cosine_hemisphere_planar(n: V3, u1, u2) -> V3:
@@ -623,35 +888,226 @@ def _pow5(x: torch.Tensor) -> torch.Tensor:
     return x * (x2 * x2)
 
 
+def _textured_albedo(hit: HitP, ray_d: V3, textures: T.Textures,
+                     albedo: V3, bilinear: bool, bilinear_fast: bool):
+    """The atlas and env fetches of one bounce (the branches of the JAX
+    shade_planar, ops/wavefront.py:1194-1295): (albedo with its texels,
+    the env radiance of the miss lanes where it rode the same fetch, else
+    None). Where the scene has both an atlas and an env map, hit lanes read
+    the atlas and miss lanes the env through one take of the fused table
+    (`ops.texfetch.fuse`); each side decodes every lane and keeps its own."""
+    mat_id = hit.mat_id
+    ha, wa = textures.atlas.shape[0], textures.atlas.shape[1]
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    na = ha * wa
+    has_atlas, has_env = textures.has_atlas, textures.has_env
+    fuse = (has_atlas and has_env
+            and texfetch.full(textures.atlas_packed, na)
+            and texfetch.full(textures.env_packed, he * we))
+    has_pair = texfetch.full(textures.atlas_pair, na)
+    has_env_pair = texfetch.full(textures.env_pair, he * we)
+    fast = bilinear and bilinear_fast
+    take = texfetch.take_u32
+    scale = textures.env_enabled
+    on_env = hit.t <= 0.0
+    if fuse and fast and has_pair:
+        # --bilinear-fast: two takes of the pair table give the atlas's
+        # four corners on hit lanes and, with env_pair, the env's on miss
+        # lanes (else a nearest RGBE env texel)
+        table = _fused(textures.fused_pair, na + he * we)
+        a00, _, a01, _, fua, fva, textured = _atlas_bilinear_indices(
+            textures, mat_id, hit.u, hit.v)
+        if has_env_pair:
+            e00, _, e01, _, fue, fve = _env_bilinear_indices(textures, ray_d)
+        else:
+            e00 = e01 = _env_flat_index(textures, ray_d)
+        p_top = take(table, torch.where(on_env, e00 + na, a00))
+        p_bot = take(table, torch.where(on_env, e01 + na, a01))
+        c00, c10 = _unpack_565pair(p_top)
+        c01, c11 = _unpack_565pair(p_bot)
+        albedo = vec.where(textured & ~on_env,
+                           _bilerp(c00, c10, c01, c11, fua, fva), albedo)
+        if not has_env_pair:
+            return albedo, _unpack_rgbe(p_top, scale)
+        ec00, ec10 = _unpack_envpair(p_top, scale)
+        ec01, ec11 = _unpack_envpair(p_bot, scale)
+        return albedo, _bilerp(ec00, ec10, ec01, ec11, fue, fve)
+    if has_atlas and fast and has_pair:
+        a00, _, a01, _, fu, fv, textured = _atlas_bilinear_indices(
+            textures, mat_id, hit.u, hit.v)
+        c00, c10 = _unpack_565pair(take(textures.atlas_pair, a00))
+        c01, c11 = _unpack_565pair(take(textures.atlas_pair, a01))
+        return vec.where(textured, _bilerp(c00, c10, c01, c11, fu, fv),
+                         albedo), None
+    if fuse and bilinear:
+        # --bilinear: four corner takes of the fused table
+        table = _fused(textures.fused_packed, na + he * we)
+        a00, a10, a01, a11, fua, fva, textured = _atlas_bilinear_indices(
+            textures, mat_id, hit.u, hit.v)
+        e00, e10, e01, e11, fue, fve = _env_bilinear_indices(textures, ray_d)
+        fu = torch.where(on_env, fue, fua)
+        fv = torch.where(on_env, fve, fva)
+        ps = [take(table, torch.where(on_env, e + na, a))
+              for a, e in ((a00, e00), (a10, e10), (a01, e01), (a11, e11))]
+        albedo = vec.where(textured & ~on_env,
+                           _bilerp(*[_unpack_rgb8(q) for q in ps], fu, fv),
+                           albedo)
+        return albedo, _bilerp(*[_unpack_rgbe(q, scale) for q in ps], fu, fv)
+    if fuse:
+        table = _fused(textures.fused_packed, na + he * we)
+        aflat, textured = _atlas_flat_index(textures, mat_id, hit.u, hit.v)
+        eflat = _env_flat_index(textures, ray_d)
+        q = take(table, torch.where(on_env, eflat + na, aflat))
+        albedo = vec.where(textured & ~on_env, _unpack_rgb8(q), albedo)
+        return albedo, _unpack_rgbe(q, scale)
+    if has_atlas and bilinear and texfetch.full(textures.atlas_packed, na):
+        a00, a10, a01, a11, fu, fv, textured = _atlas_bilinear_indices(
+            textures, mat_id, hit.u, hit.v)
+        cs4 = [_unpack_rgb8(take(textures.atlas_packed, i))
+               for i in (a00, a10, a01, a11)]
+        return vec.where(textured, _bilerp(*cs4, fu, fv), albedo), None
+    if has_atlas:
+        return _sample_texture_planar(textures, mat_id, hit.u, hit.v,
+                                      albedo), None
+    return albedo, None
+
+
+def _env_radiance(ray_d: V3, textures: T.Textures, like: torch.Tensor,
+                  bilinear: bool, bilinear_fast: bool) -> V3:
+    """The env map's radiance in direction ray_d where no fused fetch gave
+    it: bilinear from the pair plane or four RGBE corners, nearest, or the
+    constant env of a scene without an env map."""
+    he, we = textures.env.shape[0], textures.env.shape[1]
+    take = texfetch.take_u32
+    scale = textures.env_enabled
+    if textures.has_env and bilinear and bilinear_fast \
+            and texfetch.full(textures.env_pair, he * we):
+        e00, _, e01, _, fu, fv = _env_bilinear_indices(textures, ray_d)
+        ec00, ec10 = _unpack_envpair(take(textures.env_pair, e00), scale)
+        ec01, ec11 = _unpack_envpair(take(textures.env_pair, e01), scale)
+        return _bilerp(ec00, ec10, ec01, ec11, fu, fv)
+    if textures.has_env and bilinear \
+            and texfetch.full(textures.env_packed, he * we):
+        e00, e10, e01, e11, fu, fv = _env_bilinear_indices(textures, ray_d)
+        return _bilerp(*[_unpack_rgbe(take(textures.env_packed, i), scale)
+                         for i in (e00, e10, e01, e11)], fu, fv)
+    if textures.has_env:
+        return _sample_env_planar(textures, ray_d)
+    e = textures.env[0, 0].to(like.device) * scale.to(like.device)
+    return vec.splat(e, like=like)
+
+
+def _sky_radiance(ray_d: V3, sk: torch.Tensor) -> V3:
+    """The procedural sky (ENVSKY): a horizon-to-zenith gradient plus a sun
+    lobe, weighted by sk[0]."""
+    up_t = _clip(ray_d.y, 0.0, 1.0)
+    zero = torch.zeros_like(up_t)
+    sun = vec.normalize(V3(sk[7] + zero, sk[8] + zero, sk[9] + zero))
+    sun_cos = _clip(vec.dot(ray_d, sun), 0.0, 1.0)
+    sun_lobe = torch.pow(sun_cos, _max(sk[13], 1.0))
+    return V3(*((sk[4 + c] + (sk[1 + c] - sk[4 + c]) * up_t
+                 + sk[10 + c] * sun_lobe) * sk[0] for c in range(3)))
+
+
+def _bump_normal(hit: HitP, n_sh: V3, textures: T.Textures, mat_id) -> V3:
+    """The procedural world-space bump h(p) = sin(f x) sin(f y) sin(f z):
+    its analytic gradient, projected on the tangent plane, tilts the
+    shading normal by `scale` (materials with BUMP scale > 0)."""
+    bs = _mat_select(textures.bump[:, 0], mat_id)
+    bf = _mat_select(textures.bump[:, 1], mat_id)
+    px, py, pz = hit.surf.x * bf, hit.surf.y * bf, hit.surf.z * bf
+    sx, sy, sz = torch.sin(px), torch.sin(py), torch.sin(pz)
+    grad = V3(bf * torch.cos(px) * sy * sz, bf * sx * torch.cos(py) * sz,
+              bf * sx * sy * torch.cos(pz))
+    gn = vec.dot(grad, n_sh)
+    pert = vec.normalize(V3(*(n - bs * (g - gn * n)
+                              for n, g in zip(n_sh, grad))))
+    return vec.where(bs > 0.0, pert, n_sh)
+
+
+def _normal_map(hit: HitP, n_sh: V3, textures: T.Textures, mat_id) -> V3:
+    """The tangent-space normal map (NORMALMAP): one texel fetch of the
+    same atlas strip, in the frame of the uv tangent Gram-Schmidt'ed
+    against the normal (a normal-derived frame where the tangent vanishes),
+    kept only where it stays on the geometric hemisphere."""
+    nflat, has_map = _atlas_flat_index(textures, mat_id, hit.u, hit.v,
+                                       rect=textures.nrm_rect,
+                                       tid_table=textures.nrm_id)
+    ha, wa = textures.atlas.shape[0], textures.atlas.shape[1]
+    if texfetch.full(textures.atlas_packed, ha * wa):
+        texel = _unpack_rgb8(texfetch.take_u32(textures.atlas_packed, nflat))
+    else:
+        texel = _take_f32x3(textures.atlas, nflat)
+    tn = V3(*(c * 2.0 - 1.0 for c in texel))
+    tdn = vec.dot(hit.tan, n_sh)
+    tperp = V3(*(t - tdn * n for t, n in zip(hit.tan, n_sh)))
+    tlen2 = vec.dot(tperp, tperp)
+    fx = n_sh.x.abs() < SQRT_OF_ONE_THIRD
+    fy = (~fx) & (n_sh.y.abs() < SQRT_OF_ONE_THIRD)
+    not_n = V3(fx.to(F32), fy.to(F32), (~(fx | fy)).to(F32))
+    t_fb = vec.normalize(vec.cross(n_sh, not_n))
+    ok_t = tlen2 > 1e-12
+    inv_l = torch.rsqrt(_max(tlen2, 1e-12))
+    t_dir = vec.where(ok_t, tperp * inv_l, t_fb)
+    b_dir = vec.cross(n_sh, t_dir)
+    n_map = vec.normalize(V3(*(t * tn.x + b * tn.y + n * tn.z
+                               for t, b, n in zip(t_dir, b_dir, n_sh))))
+    keep = has_map & (vec.dot(n_map, hit.normal) > 1e-3)
+    return vec.where(keep, n_map, n_sh)
+
+
 def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                  materials: T.Materials, textures: T.Textures,
                  uniforms: Sequence[torch.Tensor],
                  last_bounce: torch.Tensor, glossy: bool = True,
                  nee: Optional[tuple] = None,
-                 nee_area: float = 0.0) -> ShadeOutP:
+                 nee_area: float = 0.0, sky: bool = False,
+                 nee_env_c: float = 0.0, nee_q: float = 1.0,
+                 bump: bool = False, nmap: bool = False,
+                 bilinear: bool = False,
+                 bilinear_fast: bool = False) -> ShadeOutP:
     """One scattering step over the wavefront; `uniforms` holds the four
-    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar` with sky
-    off, area-light NEE or none.
+    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar` without
+    dispersion.
+
+    Albedo: the material colour, its atlas texel where the material is
+    textured (nearest; `bilinear` four corners; with `bilinear_fast` the
+    pair planes' two takes; `_textured_albedo`), and the procedural
+    checker. `bump` and `nmap` (static gates) tilt the shading normal
+    (`_bump_normal`, `_normal_map`, the latter reading `hit.tan`). A miss
+    collects the env map (or the constant env) plus, with `sky`, the
+    procedural sky.
 
     `nee` (None = BSDF sampling alone) is the tuple (wl V3, vis [N] bool,
     le V3, pdf_l [N], prev_pdf [N]): this bounce's shadow-tested light
     sample (direction, visibility, emitted radiance, the light sampler's
-    solid-angle pdf) and the previous bounce's lobe pdf. Light and BSDF
-    sampling combine by the one-sample balance heuristic: the direct term
-    of the diffuse and glossy lobes is weighted pdf_bsdf / (pdf_l +
-    pdf_bsdf), and with `nee_area` > 0 (the light union's area) an
-    emissive BSDF hit is weighted prev_pdf / (prev_pdf + pdf_l(hit)), with
-    pdf_l(hit) = t^2 / (|cos| * area) and prev_pdf == 0 (camera, mirror,
-    refraction) meaning full weight. The direct term is skipped on the last
-    bounce, so the estimator covers the plain one's transport at equal
-    depth. The lobe's pdf of the new direction comes back as `nee_pdf`.
+    solid-angle pdf times its selection probability) and the previous
+    bounce's lobe pdf. Light and BSDF sampling combine by the one-sample
+    balance heuristic: the direct term of the diffuse and glossy lobes is
+    weighted pdf_bsdf / (pdf_l + pdf_bsdf); with `nee_area` > 0 (the light
+    union's area) an emissive BSDF hit is weighted prev_pdf / (prev_pdf +
+    pdf_l(hit)), pdf_l(hit) = t^2 / (|cos| * area); with `nee_env_c` > 0 an
+    env miss is weighted prev_pdf / (prev_pdf + lum(env) * C). In the mixed
+    mode `nee_q` is the probability of sampling the area union (1 - nee_q
+    the env), which scales each side's light pdf. prev_pdf == 0 (camera,
+    mirror, refraction) means full weight. The direct term is skipped on
+    the last bounce, so the estimator covers the plain one's transport at
+    equal depth. The lobe's pdf of the new direction comes back as
+    `nee_pdf`.
 
     Detach convention: the lobe and Fresnel decisions and the diffuse
     direction are detached; the mirror, refraction and glossy directions
     keep their dependence on the materials (the training slice relies on
     it)."""
     mat_id = hit.mat_id
-    albedo = _mat_select(materials.color, mat_id)
+    albedo, env_fused = _textured_albedo(
+        hit, ray_d, textures, _mat_select(materials.color, mat_id),
+        bilinear, bilinear_fast)
+    cs = _mat_select(textures.checker_scale, mat_id)
+    c2 = _mat_select(textures.checker_color2, mat_id)
+    par = torch.remainder(torch.floor(hit.u * cs) + torch.floor(hit.v * cs),
+                          2.0)
+    albedo = vec.where((cs > 0) & (par > 0.5), c2, albedo)
     spec_color = _mat_select(materials.specular_color, mat_id)
     emittance = _mat_select(materials.emittance, mat_id)
     p_refr = _clip(_mat_select(materials.has_refractive, mat_id), 0.0, 1.0)
@@ -664,9 +1120,20 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     is_light = hit_ok & (emittance > 0.0)
     missed = ~hit_ok
 
-    e = textures.env[0, 0].to(hit.t.device) * textures.env_enabled.to(
-        hit.t.device)
-    env = vec.splat(e, like=hit.t)
+    # the shading normal replaces the geometric one from here on; the
+    # normal map's hemisphere guard reads the geometric one
+    n_sh = hit.normal
+    if bump:
+        n_sh = _bump_normal(hit, n_sh, textures, mat_id)
+    if nmap and hit.tan is not None:
+        n_sh = _normal_map(hit, n_sh, textures, mat_id)
+    if bump or nmap:
+        hit = hit._replace(normal=n_sh)
+
+    env = (env_fused if env_fused is not None else
+           _env_radiance(ray_d, textures, hit.t, bilinear, bilinear_fast))
+    if sky:
+        env = env + _sky_radiance(ray_d, textures.sky)
 
     lit = alive & is_light
     mis = alive & missed
@@ -676,10 +1143,24 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
         prev_pdf = nee[4]
         cos_l_hit = torch.abs(vec.dot(hit.normal, ray_d))
         pdf_l_hit = (hit.t * hit.t) / _max(cos_l_hit * nee_area, 1e-9)
+        if nee_q != 1.0:
+            pdf_l_hit = pdf_l_hit * nee_q
         w_hit = torch.where(prev_pdf > 0.0,
                             prev_pdf / _max(prev_pdf + pdf_l_hit, 1e-30),
                             torch.ones_like(prev_pdf))
         rad_scale = rad_scale * w_hit
+    if nee is not None and nee_env_c > 0.0:
+        # the env-sampling pdf of this miss direction is lum(texel) * C,
+        # free off the texel already fetched
+        prev_pdf = nee[4]
+        from . import nee as nee_mod  # nee imports this module
+        pdf_env_dir = nee_mod.env_lum(env) * nee_env_c
+        if nee_q != 0.0:
+            pdf_env_dir = pdf_env_dir * (1.0 - nee_q)
+        w_env = torch.where(prev_pdf > 0.0,
+                            prev_pdf / _max(prev_pdf + pdf_env_dir, 1e-30),
+                            torch.ones_like(prev_pdf))
+        env = V3(*(c * w_env for c in env))
     radiance = V3(*(torch.where(lit, th * al * rad_scale,
                                 torch.where(mis, th * en, zero))
                     for th, al, en in zip(throughput, albedo, env)))

@@ -1,5 +1,5 @@
-"""Progressive path-tracing integrator: primitive and mesh scenes, with
-area-light direct lighting.
+"""Progressive path-tracing integrator: primitive and mesh scenes,
+textures and environment lighting, with direct lighting.
 
 Counterpart of project3_cuda_path_tracer_tpu/render/integrator.py: one
 iteration (one sample per pixel) traces the whole W*H wavefront through
@@ -13,17 +13,20 @@ accumulator (finalGather, reference src/pathtrace.cu:269-278).
               `ops.megakernel.iteration` per iteration, the CUDA megakernel
               on the card;
   wavefront   the other scenes the torch stages cover (meshes, the glossy
-              lobe), and every scene rendered with NEE, RIS or ReSTIR
-              (the megakernel has no light sampling): `trace_wavefront` on
-              the Renderer's device, whose mesh hits go through the BVH
-              traversal kernels (ops/bvh8.py, ops/pallas_bvh.py), the
-              shadow rays through K2's any-hit mode.
-Direct lighting (`settings.nee`, `nee_ris`, `restir`) is the area-light
-mode of ops/nee.py: one light sample a bounce with one-sample MIS, RIS over
-M candidates, and the per-pixel temporal reservoir of ReSTIR at depth 0.
-Not ported yet: env-map NEE (slice D), sort and compaction, Russian
-roulette, the first-bounce cache (slice E), adaptive sampling and
-checkpoints (slice F; ROADMAP.md Queue 1).
+              lobe, textures, checkers, bump and normal maps, env maps and
+              the procedural sky), and every scene rendered with NEE, RIS
+              or ReSTIR (the megakernel has no light sampling):
+              `trace_wavefront` on the Renderer's device, whose mesh hits
+              go through the BVH traversal kernels (ops/bvh8.py,
+              ops/pallas_bvh.py), the shadow rays through K2's any-hit
+              mode, and the texel fetches through P1 (ops/texfetch.py).
+Direct lighting (`settings.nee`, `nee_ris`, `restir`) follows ops/nee.py:
+one light sample a bounce with one-sample MIS from the area lights, the
+env map, or a mixture of both (`_wire_nee`), RIS over M candidates, and
+the per-pixel temporal reservoir of ReSTIR at depth 0 (area lights only).
+Not ported yet: SDFs, dispersion, sort and compaction, Russian roulette,
+the first-bounce cache (slice E), adaptive sampling and checkpoints
+(slice F; ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -37,9 +40,11 @@ import torch
 
 from ..ops import megakernel as mk
 from ..ops import nee as nee_mod
+from ..ops import texfetch
 from ..ops import vec
 from ..ops import wavefront as wf
 from ..ops.vec import V3
+from ..scene import parser
 from ..scene import types as T
 from ..utils import image as img_io
 from ..utils.device import resolve_device, synchronize
@@ -56,7 +61,7 @@ class TraceConfig:
     geom_types: Tuple[int, ...] = ()
     # evaluate the glossy Phong lobe (some material has SPECEX > 0)
     glossy: bool = True
-    # evaluate the procedural sky (not ported: must be False)
+    # evaluate the procedural sky (the scene has ENVSKY)
     sky: bool = False
     # thin-lens / motion-blur math (the scene has APERTURE+FOCAL / SHUTTER)
     dof: bool = True
@@ -86,6 +91,21 @@ class TraceConfig:
     # is capped at restir_cap * M (trace_wavefront `reservoir=`)
     restir: bool = False
     restir_cap: float = 20.0
+    # Env-map NEE (`_wire_nee`): an importance-sampled HDR env map, C its
+    # pdf constant (pdf = lum * C). With area lights too each bounce
+    # samples the area union with probability nee_q, else the env map;
+    # nee_q is 1 with area lights alone and 0 with the env map alone.
+    nee_env: bool = False
+    nee_env_c: float = 0.0
+    nee_q: float = 1.0
+    # bump and normal maps (some material has BUMP / NORMALMAP); nmap also
+    # makes the intersect stage return uv tangents
+    bump: bool = False
+    nmap: bool = False
+    # bilinear texture and env filtering (--bilinear), through the pair
+    # planes (--bilinear-fast)
+    bilinear: bool = False
+    bilinear_fast: bool = False
 
 
 # Fewest eligible spheres for the batched pass: scenes with a handful keep
@@ -95,15 +115,17 @@ SPHERE_BATCH_MIN = 9
 
 def _eligible_sphere_batch(scene: T.Scene) -> Tuple[int, ...]:
     """Geom indices for TraceConfig.sphere_batch (the JAX
-    `_eligible_sphere_batch`): the spheres of uniform scale, when at least
-    SPHERE_BATCH_MIN qualify; else (). (The JAX package also leaves out
-    spheres with a textured, checker, normal-mapped or bumped material,
-    whose uv the batch does not compute; the port has no such materials
-    until slice D.)"""
+    `_eligible_sphere_batch`): the spheres of uniform scale whose material
+    is not textured, checkered, normal-mapped or bumped (the batch computes
+    no uv), when at least SPHERE_BATCH_MIN qualify; else ()."""
     xf = scene.geoms.transform.detach().cpu().numpy()
+    mats = scene.geoms.material_id.tolist()
+    tx = scene.textures
+    plain = ((tx.tex_id < 0) & (tx.nrm_id < 0) & (tx.checker_scale <= 0)
+             & (tx.bump[:, 0] <= 0)).tolist()
     elig = []
     for g, t in enumerate(scene.geoms.type.tolist()):
-        if t != T.SPHERE:
+        if t != T.SPHERE or not plain[mats[g]]:
             continue
         s0, s1, s2 = (float(np.linalg.norm(xf[g][:3, i])) for i in range(3))
         if abs(s0 - s1) <= 1e-5 * s0 and abs(s0 - s2) <= 1e-5 * s0:
@@ -114,9 +136,23 @@ def _eligible_sphere_batch(scene: T.Scene) -> Tuple[int, ...]:
 def build_trace_config(scene: T.Scene, settings=None) -> TraceConfig:
     """RenderSettings -> TraceConfig, as the JAX `build_trace_config`
     (integrator.py:992-1060) resolves the fields above. NEE and ReSTIR are
-    wired by `Renderer` (`_wire_nee`), as in the JAX package."""
+    wired by `Renderer` (`_wire_nee`), as in the JAX package.
+
+    With `bilinear_fast` on a textured scene the pair planes are built here,
+    at first use, and stored into scene.textures: the atlas's
+    (parser.build_atlas_pair) and the env map's (image.pack_env_pair)."""
     settings = settings or scene.settings
     w, h = scene.camera.resolution
+    tx = scene.textures
+    fast = bool(settings.bilinear_fast)
+    if fast and tx.atlas_pair.shape[0] == 1:
+        pair = parser.build_atlas_pair(tx)
+        if pair is not None:
+            tx = dataclasses.replace(tx, atlas_pair=pair)
+    if fast and tx.env_pair.shape[0] == 1 and tx.has_env:
+        tx = dataclasses.replace(tx, env_pair=torch.from_numpy(
+            img_io.pack_env_pair(tx.env.cpu().numpy()).view(np.int32)))
+    scene.textures = tx
     return TraceConfig(
         width=w, height=h, trace_depth=settings.trace_depth,
         antialias=settings.antialias,
@@ -129,7 +165,10 @@ def build_trace_config(scene: T.Scene, settings=None) -> TraceConfig:
         stratified=settings.stratified,
         mesh_ids=tuple(int(m) for m in scene.geoms.mesh_id.tolist()),
         sphere_batch=_eligible_sphere_batch(scene),
-        nee_ris=int(settings.nee_ris))
+        nee_ris=int(settings.nee_ris),
+        bump=bool((tx.bump[:, 0] > 0).any()),
+        nmap=bool((tx.nrm_id >= 0).any()),
+        bilinear=bool(settings.bilinear), bilinear_fast=fast)
 
 
 # mixed into the seed of a Renderer step's light generator
@@ -214,26 +253,75 @@ def _ris_target(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
     return target
 
 
-def _ris_sample(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
-                ray_d: V3, alive: torch.Tensor, uf: torch.Tensor,
-                res: Optional[dict]):
-    """RIS over M = max(cfg.nee_ris, 1) area-light candidates (the JAX
-    integrator.py:540-771): candidate j takes rows 3j..3j+2 of `uf`
-    ([3M + 1 (+1 with `res`), N]), the winner is the first whose running
-    target sum passes uf[3M] * total, and its le is scaled by total /
-    (M * t_winner). With `res` (ReSTIR, depth 0) the stored light point,
-    re-evaluated here, is merged by the draw uf[3M + 1] and the winner is
-    stored back (before visibility) with its count capped at restir_cap *
-    M. Returns (wl, ldist, le_scaled, pdf, new_reservoir or None)."""
+def _env_sample(cfg: TraceConfig, textures: T.Textures,
+                us4: Sequence[torch.Tensor]):
+    """One env-map light sample a lane: (wl, le, pdf), pdf = lum(le) * C
+    in solid angle."""
+    wl, le = nee_mod.sample_env_planar(textures, *us4)
+    return wl, le, wf._max(nee_mod.env_lum(le) * cfg.nee_env_c, 1e-20)
+
+
+def _mixed_sample(cfg: TraceConfig, materials: T.Materials,
+                  textures: T.Textures, point: V3, u_sel: torch.Tensor,
+                  us_area: Sequence[torch.Tensor],
+                  us_env: Sequence[torch.Tensor]):
+    """The one-sample mixture of the mixed mode: the area union (sampled
+    from the 3 planes `us_area`) where u_sel < nee_q, else the env map
+    (from the 4 planes `us_env`). Returns (wl, ldist, le, pdf, take_area,
+    lp, ln) with pdf scaled by the selection probability and ldist = BIG
+    on env lanes."""
+    q = cfg.nee_q
+    take_area = u_sel < q
+    wl_a, ld_a, le_a, pdf_a, lp, ln = _area_sample(cfg, materials, point,
+                                                   us_area)
+    wl_e, le_e, pdf_e = _env_sample(cfg, textures, us_env)
+    return (vec.where(take_area, wl_a, wl_e),
+            torch.where(take_area, ld_a, torch.full_like(ld_a, wf.BIG)),
+            vec.where(take_area, le_a, le_e),
+            torch.where(take_area, pdf_a * q, pdf_e * (1.0 - q)),
+            take_area, lp, ln)
+
+
+def _shadow_max_t(ldist: torch.Tensor, take_area: Optional[torch.Tensor]):
+    """The shadow ray's search bound: `ldist` a little short of the light
+    sample (an area light), unbounded (BIG) on env lanes."""
+    max_t = ldist * (1.0 - 1e-3) - 1e-3
+    if take_area is None:
+        return max_t
+    return torch.where(take_area, max_t, torch.full_like(max_t, wf.BIG))
+
+
+def _ris_sample(cfg: TraceConfig, materials: T.Materials,
+                textures: T.Textures, hit: wf.HitP, ray_d: V3,
+                alive: torch.Tensor, uf: torch.Tensor, res: Optional[dict]):
+    """RIS over M = max(cfg.nee_ris, 1) light candidates (the JAX
+    integrator.py:540-771): candidate j takes rows cdim*j.. of `uf`
+    ([cdim*M + 1 (+1 with `res`), N]; cdim = 3 with area lights alone, 5
+    in the mixed mode, whose candidates are `_mixed_sample`'s), the winner
+    is the first whose running target sum passes uf[cdim*M] * total, and
+    its le is scaled by total / (M * t_winner). With `res` (ReSTIR, depth
+    0, area lights alone) the stored light point, re-evaluated here, is
+    merged by the draw uf[cdim*M + 1] and the winner is stored back
+    (before visibility) with its count capped at restir_cap * M. Returns
+    (wl, max_t of the shadow ray, le_scaled, pdf, new_reservoir or
+    None)."""
     m = max(cfg.nee_ris, 1)
     n = alive.shape[0]
+    mixed = bool(cfg.nee_lights) and cfg.nee_env
+    cdim = 5 if mixed else 3
     target = _ris_target(cfg, materials, hit, ray_d)
     # all M candidates at once as [M, N] (elementwise, so each value is
     # the one a candidate-at-a-time loop computes)
     point = V3(*(c.expand(m, n).reshape(-1) for c in hit.point))
-    wl, ld, le, pdf, lp, ln = _area_sample(
-        cfg, materials, point,
-        tuple(uf[i:3 * m:3].reshape(-1) for i in range(3)))
+    rows = tuple(uf[i:cdim * m:cdim].reshape(-1) for i in range(cdim))
+    take_area = None
+    if mixed:
+        # a candidate's env sample reuses its area planes (JAX's layout)
+        wl, ld, le, pdf, take_area, lp, ln = _mixed_sample(
+            cfg, materials, textures, point, rows[0], rows[1:4], rows[1:5])
+        take_area = take_area.reshape(m, n)
+    else:
+        wl, ld, le, pdf, lp, ln = _area_sample(cfg, materials, point, rows)
     shape = (m, n)
     wl, le, lp, ln = (V3(*(c.reshape(shape) for c in v))
                       for v in (wl, le, lp, ln))
@@ -242,7 +330,7 @@ def _ris_sample(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
     total = t[0]
     for j in range(1, m):
         total = total + t[j]
-    thresh = uf[3 * m] * total
+    thresh = uf[cdim * m] * total
     cum = torch.zeros_like(total)
     sel = torch.zeros((n,), dtype=torch.int64, device=total.device)
     done = torch.zeros((n,), dtype=torch.bool, device=total.device)
@@ -256,6 +344,8 @@ def _ris_sample(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
         return a.gather(0, sel[None])[0]
     wl, le, lp, ln = (V3(*(pick(c) for c in v)) for v in (wl, le, lp, ln))
     ld, pdf, t_y = pick(ld), pick(pdf), pick(t)
+    if take_area is not None:
+        take_area = pick(take_area)
 
     new_res = None
     if res is not None:
@@ -270,7 +360,7 @@ def _ris_sample(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
                           torch.zeros_like(m_prev))
         w_temp = t_p * w_prev * m_prev
         wsum = total + w_temp
-        take_prev = uf[3 * m + 1] * wsum < w_temp
+        take_prev = uf[cdim * m + 1] * wsum < w_temp
         wl = vec.where(take_prev, wl_p, wl)
         ld = torch.where(take_prev, ld_p, ld)
         le = vec.where(take_prev, le_p, le)
@@ -296,7 +386,8 @@ def _ris_sample(cfg: TraceConfig, materials: T.Materials, hit: wf.HitP,
     else:
         s = torch.where(t_y > 0.0, total / (m * wf._max(t_y, 1e-30)),
                         torch.zeros_like(t_y))
-    return wl, ld, V3(le.x * s, le.y * s, le.z * s), pdf, new_res
+    return (wl, _shadow_max_t(ld, take_area), V3(le.x * s, le.y * s,
+                                                   le.z * s), pdf, new_res)
 
 
 def _draw(generator, rows: int, n: int, dev) -> torch.Tensor:
@@ -324,22 +415,26 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
     given; else from the stratified lattice when `cfg.stratified` and
     `iteration` is given; else from `torch.rand` on `generator`. Mesh geoms
     traverse `packed_meshes` (Scene.packed_meshes on the same device);
-    `cfg.differentiable_mesh` recomputes their hits from `meshes`.
+    `cfg.differentiable_mesh` recomputes their hits from `meshes`, and
+    `cfg.nmap` reads their uv tangents from it. `textures` are the
+    scene's on the same device, fused (`ops.texfetch.fuse`) where the
+    scene has both an atlas and an env map.
 
-    Under `cfg.nee` each bounce draws a light sample: its 3 planes from the
-    lattice (salt SALT_NEE_AREA) when stratified, else from `light_gen`
-    (by default `light_generator(generator)`; the global stream when both
-    are None). RIS candidates (`cfg.nee_ris` >= 2 or ReSTIR) come from
-    `ris_u[depth]` ([3M + 1, N], one more row at depth 0 with `reservoir`)
-    when given, else from `light_gen`, even when stratified, as the JAX
-    package draws them from jax.random. The shadow ray of the last bounce
-    is not cast: `shade_planar` drops its term."""
-    if cfg.sky:
-        raise NotImplementedError("the procedural sky is not ported "
-                                  "(ROADMAP.md slice D)")
-    if reservoir is not None and not (cfg.nee and cfg.nee_lights):
+    Under `cfg.nee` each bounce draws a light sample: 3 planes (area
+    lights), 4 (the env map) or 8 (the mixture) from the lattice (salts
+    SALT_NEE_AREA, SALT_NEE_ENV, SALT_NEE_MIXED) when stratified, else from
+    `light_gen` (by default `light_generator(generator)`; the global
+    stream when both are None). RIS candidates (`cfg.nee_ris` >= 2 or
+    ReSTIR) come from `ris_u[depth]` ([cdim*M + 1, N], cdim 3 or 5 in the
+    mixed mode, one more row at depth 0 with `reservoir`) when given, else
+    from `light_gen`, even when stratified, as the JAX package draws them
+    from jax.random. An area sample's shadow ray stops short of the light,
+    an env sample's is unbounded. The shadow ray of the last bounce is not
+    cast: `shade_planar` drops its term."""
+    if reservoir is not None and not (cfg.nee and cfg.nee_lights
+                                      and not cfg.nee_env):
         raise ValueError("restir needs the area-light NEE mode (nee_lights "
-                         "set)")
+                         "set, no env-map NEE)")
     strat = cfg.stratified and iteration is not None
     o, d, times, pix = wf.generate_rays_planar(
         cam, cfg.width, cfg.height, generator, antialias=cfg.antialias,
@@ -352,7 +447,8 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
     thr = V3(ones, ones, ones)
     rad = V3(zeros, zeros, zeros)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    nee = cfg.nee and bool(cfg.nee_lights)
+    nee = cfg.nee and (bool(cfg.nee_lights) or cfg.nee_env)
+    mixed = bool(cfg.nee_lights) and cfg.nee_env
     ris = nee and (cfg.nee_ris >= 2 or cfg.restir)
     prev_pdf = zeros
     new_res = None
@@ -363,7 +459,8 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
                                   packed_meshes, cfg.mesh_ids, alive=alive,
                                   meshes=meshes,
                                   differentiable_mesh=cfg.differentiable_mesh,
-                                  sphere_batch=cfg.sphere_batch)
+                                  sphere_batch=cfg.sphere_batch,
+                                  tangents=cfg.nmap)
         if u is not None:
             uniforms = u[depth]
         elif strat:
@@ -378,24 +475,37 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
         if nee:
             res = reservoir if depth == 0 else None
             if ris:
-                rows = 3 * max(cfg.nee_ris, 1) + (2 if res is not None
-                                                  else 1)
+                cdim = 5 if mixed else 3
+                rows = cdim * max(cfg.nee_ris, 1) + (2 if res is not None
+                                                     else 1)
                 uf = (ris_u[depth] if ris_u is not None
                       else _draw(light_gen, rows, n, dev))
                 if tuple(uf.shape) != (rows, n):
                     raise ValueError(f"RIS draws at depth {depth} must be "
                                      f"[{rows}, {n}], got "
                                      f"{tuple(uf.shape)}")
-                wl, ldist, le, pdf, stored = _ris_sample(
-                    cfg, materials, hit, d, alive, uf, res)
+                wl, max_t, le, pdf, stored = _ris_sample(
+                    cfg, materials, textures, hit, d, alive, uf, res)
                 if res is not None:
                     new_res = stored
             else:
-                us = (wf.stratified_planes(iteration, depth, pix, 3,
-                                           wf.SALT_NEE_AREA) if strat
-                      else tuple(_draw(light_gen, 3, n, dev)))
-                wl, ldist, le, pdf, _, _ = _area_sample(cfg, materials,
-                                                        hit.point, us)
+                ndim, salt = ((8, wf.SALT_NEE_MIXED) if mixed else
+                              (4, wf.SALT_NEE_ENV) if cfg.nee_env else
+                              (3, wf.SALT_NEE_AREA))
+                us = (wf.stratified_planes(iteration, depth, pix, ndim, salt)
+                      if strat else tuple(_draw(light_gen, ndim, n, dev)))
+                if mixed:
+                    wl, ldist, le, pdf, take_area, _, _ = _mixed_sample(
+                        cfg, materials, textures, hit.point, us[0], us[1:4],
+                        us[4:8])
+                    max_t = _shadow_max_t(ldist, take_area)
+                elif cfg.nee_env:
+                    wl, le, pdf = _env_sample(cfg, textures, us)
+                    max_t = None
+                else:
+                    wl, ldist, le, pdf, _, _ = _area_sample(
+                        cfg, materials, hit.point, us)
+                    max_t = _shadow_max_t(ldist, None)
             if last:
                 vis = torch.zeros((n,), dtype=torch.bool, device=dev)
             else:
@@ -403,7 +513,7 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
                     sh = wf.intersect_planar(
                         hit.point, wl, times, geoms, cfg.geom_types,
                         packed_meshes, cfg.mesh_ids, alive=alive,
-                        any_hit=True, max_t=ldist * (1.0 - 1e-3) - 1e-3,
+                        any_hit=True, max_t=max_t,
                         sphere_batch=cfg.sphere_batch)
                 vis = sh.t <= 0.0
             nee_tuple = (wl, vis, le, pdf, prev_pdf)
@@ -411,7 +521,12 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
             hit, d, thr, alive, materials, textures, uniforms,
             last_bounce=torch.full((n,), last, dtype=torch.bool, device=dev),
             glossy=cfg.glossy, nee=nee_tuple,
-            nee_area=cfg.nee_area if nee else 0.0)
+            nee_area=cfg.nee_area if nee and cfg.nee_lights else 0.0,
+            sky=cfg.sky,
+            nee_env_c=cfg.nee_env_c if nee and cfg.nee_env else 0.0,
+            nee_q=(cfg.nee_q if mixed else 1.0 if cfg.nee_lights else 0.0),
+            bump=cfg.bump, nmap=cfg.nmap, bilinear=cfg.bilinear,
+            bilinear_fast=cfg.bilinear_fast)
         rad = rad + out.radiance
         o, d, thr, alive = out.origin, out.direction, out.throughput, out.alive
         if nee:
@@ -442,19 +557,28 @@ def render_radiance(materials, cam, geoms, textures, cfg: TraceConfig,
 def _wavefront_unsupported(scene: T.Scene) -> Optional[str]:
     """What in `scene` the torch stages of trace_wavefront do not cover yet,
     with the ROADMAP slice that brings it, or None."""
-    tx, mt = scene.textures, scene.materials
+    mt = scene.materials
     if (scene.geoms.type == T.SDF).any():
         return "SDF geoms (slice E)"
-    if tx.atlas.shape[0] > 1 or tx.atlas.shape[1] > 1:
-        return "a texture atlas (slice D)"
-    if tx.env.shape[0] > 1 or tx.env.shape[1] > 1:
-        return "an environment map (slice D)"
-    if (tx.bump[:, 0] > 0).any() or (tx.nrm_id >= 0).any():
-        return "bump or normal maps (slice D)"
-    if float(tx.sky[0]) > 0:
-        return "the procedural sky (slice D)"
     if mt.dispersion is not None and (mt.dispersion > 0).any():
         return "spectral dispersion (slice E)"
+    return None
+
+
+def texture_features(scene: T.Scene) -> Optional[str]:
+    """The texture and environment features of `scene` (slice D), or None:
+    what the train step does not differentiate through yet."""
+    tx = scene.textures
+    if tx.has_atlas:
+        return "a texture atlas"
+    if tx.has_env:
+        return "an environment map"
+    if (tx.checker_scale > 0).any():
+        return "a procedural checker"
+    if (tx.bump[:, 0] > 0).any() or (tx.nrm_id >= 0).any():
+        return "bump or normal maps"
+    if float(tx.sky[0]) > 0:
+        return "the procedural sky"
     return None
 
 
@@ -486,19 +610,54 @@ def announce_drops(drops: Sequence[str]) -> None:
         print("features dropped: " + "; ".join(drops), file=sys.stderr)
 
 
+def _flux_split(scene: T.Scene, faces: tuple, c: float) -> float:
+    """The mixed mode's probability of sampling the area union: its share
+    of the emitted power (pi * sum of area * lum(Le) against the env's 1 /
+    C), clipped to [0.1, 0.9] so that neither strategy starves (the JAX
+    `_wire_nee`)."""
+    lum_w = np.array(nee_mod._LUM)
+    col = scene.materials.color.detach().cpu().numpy()
+    emit = scene.materials.emittance.detach().cpu().numpy()
+
+    def face_area(f):  # the face record layout of ops/nee.py (FACE_LEN)
+        if f[1] >= 0.5:  # a sphere: its radius at [15]
+            return 4.0 * np.pi * f[15] * f[15]
+        return float(np.linalg.norm(np.cross(np.array(f[5:8]),
+                                             np.array(f[8:11]))))
+
+    flux_a = float(sum(face_area(f) * float(col[int(f[14])] @ lum_w)
+                       * float(emit[int(f[14])]) for f in faces)) * float(
+        np.pi)
+    flux_e = 1.0 / c
+    return float(np.clip(flux_a / max(flux_a + flux_e, 1e-30), 0.1, 0.9))
+
+
 def _wire_nee(scene: T.Scene, cfg: TraceConfig,
               drops: Optional[list] = None) -> TraceConfig:
-    """Resolve a NEE request into the area-light mode when the scene has
-    eligible emitters (the area branch of the JAX `_wire_nee`); otherwise
-    record the drop and stay plain, as the JAX package does. Env-map NEE
-    waits for slice D: a scene with an environment map raises (the
-    wavefront route refuses such scenes before this is reached)."""
+    """Resolve a NEE request as the JAX `_wire_nee` does: area-light NEE
+    when the scene has eligible emitters, env-map NEE when it has an
+    enabled HDR env map and no procedural sky (the sky has no sampling
+    table), and the mixed mode (`_flux_split`) when both apply. The env
+    map's alias table goes into scene.textures. Otherwise record the drop
+    and stay plain."""
     drops = drops if drops is not None else []
-    tx = scene.textures
-    if tx.env.shape[0] > 1 or tx.env.shape[1] > 1:
-        raise NotImplementedError("env-map NEE is not ported (ROADMAP.md "
-                                  "slice D)")
     faces, area = nee_mod.build_light_table(scene)
+    tx = scene.textures
+    env_table = None
+    if tx.has_env and not cfg.sky and float(tx.env_enabled) > 0:
+        env_table = nee_mod.build_env_alias(tx.env.cpu().numpy())
+    if env_table is not None:
+        alias, prob, c = env_table
+        scene.textures = dataclasses.replace(
+            tx, env_alias=torch.from_numpy(alias),
+            env_prob=torch.from_numpy(prob))
+        if faces:
+            return dataclasses.replace(
+                cfg, nee=True, nee_lights=faces, nee_area=area,
+                nee_env=True, nee_env_c=c,
+                nee_q=_flux_split(scene, faces, c))
+        return dataclasses.replace(cfg, nee=True, nee_env=True, nee_env_c=c,
+                                   nee_q=0.0)
     if faces:
         return dataclasses.replace(cfg, nee=True, nee_lights=faces,
                                    nee_area=area)
@@ -518,12 +677,14 @@ class Renderer:
     moved or packed once, here: a changed scene needs a new Renderer.
 
     Direct lighting follows the JAX Renderer: `settings.nee` (or RIS or
-    ReSTIR) wires the area-light mode (`_wire_nee`); `settings.restir` M
-    >= 1 turns on ReSTIR with nee_ris = max(M, nee_ris), and the Renderer
-    carries the per-pixel reservoir across steps (`reset` clears it). A
-    scene without eligible lights renders plain, and ReSTIR without them is
-    dropped; every drop is named on one stderr line (`announce_drops`,
-    kept in `drops`). A NEE render always takes the wavefront route.
+    ReSTIR) wires the area-light, env-map or mixed mode (`_wire_nee`);
+    `settings.restir` M >= 1 turns on ReSTIR with nee_ris = max(M,
+    nee_ris), and the Renderer carries the per-pixel reservoir across steps
+    (`reset` clears it). A scene without eligible lights renders plain, and
+    ReSTIR without the area-light mode is dropped; every drop is named on
+    one stderr line (`announce_drops`, kept in `drops`). A NEE render
+    always takes the wavefront route. The scene's textures go to the device
+    once, with their fused atlas+env tables (`ops.texfetch.fuse`).
 
     `device` is "cuda" or "cpu" and is never chosen for the caller: "cuda"
     without a card raises. Scenes with features the port's stages lack
@@ -546,9 +707,11 @@ class Renderer:
         if st.nee or st.restir >= 1:
             require_wavefront(scene)
             self.cfg = _wire_nee(scene, self.cfg, self.drops)
-        if self.cfg.restir and not self.cfg.nee:
+        if self.cfg.restir and not (self.cfg.nee and self.cfg.nee_lights
+                                    and not self.cfg.nee_env):
             self.drops.append("restir (needs the area-light NEE mode: "
-                              "emissive area lights present)")
+                              "emissive area lights present, no env-map "
+                              "NEE)")
             self.cfg = dataclasses.replace(self.cfg, restir=False)
         announce_drops(self.drops)
         if mk.supports(scene) and not self.cfg.nee:
@@ -562,9 +725,12 @@ class Renderer:
             self.tables = (to_device(scene.materials, dev),
                            scene.camera.flat(dev),
                            to_device(scene.geoms, dev),
-                           to_device(scene.textures, dev))
+                           texfetch.fuse(to_device(scene.textures, dev)))
             self.packed_meshes = tuple(to_device(p, dev)
                                        for p in scene.packed_meshes)
+            # the normal map's mesh tangents read the triangle bundle
+            self.meshes = (to_device(scene.meshes, dev) if self.cfg.nmap
+                           else None)
         self.reset()
 
     def reset(self) -> None:
@@ -592,7 +758,7 @@ class Renderer:
                 *self.tables, self.cfg,
                 generator=None if self.cfg.stratified else self._generator(),
                 iteration=self.iteration, packed_meshes=self.packed_meshes,
-                light_gen=(self._generator(LIGHT_SALT) if self.cfg.nee
+                meshes=self.meshes, light_gen=(self._generator(LIGHT_SALT) if self.cfg.nee
                            else None),
                 reservoir=self.reservoir)
             if self.reservoir is not None:

@@ -1,10 +1,10 @@
 """Carry scene parameters over from the JAX package as NumPy arrays.
 
 The JAX package's tables are pytrees of jax arrays; `np.asarray` of each
-`Materials`/`Geoms`/`MeshBundle` leaf, of each packed mesh's fields and of
-`Camera.flat()` gives plain dicts of NumPy arrays, which this module turns
-into the port's `Scene`, `MeshBundle` and packed meshes without importing
-jax; the train step's parameters and optax's Adam state come across the
+`Materials`/`Geoms`/`MeshBundle`/`Textures` leaf, of each packed mesh's
+fields and of `Camera.flat()` gives plain dicts of NumPy arrays, which this
+module turns into the port's `Scene`, `MeshBundle`, `Textures` and packed
+meshes without importing jax; the train step's parameters and optax's Adam state come across the
 same way. The tests use it to feed both packages the same parameters, the
 same BVH and the same optimizer state.
 """
@@ -58,18 +58,38 @@ def packed_mesh_from_numpy(packed: dict):
                       nodes=fuse_nodes(nodes_f, nodes_i))
 
 
+def textures_from_numpy(textures: dict) -> T.Textures:
+    """A port `Textures` from a dict of the JAX Textures' fields (every
+    field the JAX dataclass has; a missing one takes the port's default).
+    The uint32 planes become int32 tensors of the same bits, and env_prob
+    stays float32, so every value carries over bit for bit."""
+    out = {}
+    for f in dataclasses.fields(T.Textures):
+        a = textures.get(f.name)
+        if a is None:
+            continue
+        a = np.array(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[f.name] = torch.from_numpy(a)
+    return T.Textures(**out)
+
+
 def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
                      settings: Optional[T.RenderSettings] = None, *,
                      resolution: tuple,
                      meshes: Optional[T.MeshBundle] = None,
-                     packed_meshes: tuple = ()) -> T.Scene:
+                     packed_meshes: tuple = (),
+                     textures: Optional[dict] = None) -> T.Scene:
     """Build a port `Scene` from NumPy tables.
 
     `materials`/`geoms` map the JAX dataclass field names to arrays (a
     missing `dispersion` is zeros); `camera` is the JAX `Camera.flat()` dict
     (position, view, up, right, pixel_length, aperture, focal_distance,
     shutter); `resolution` is (width, height), which `flat()` does not carry.
-    `meshes` and `packed_meshes` are the port's (see the converters above).
+    `meshes` and `packed_meshes` are the port's (see the converters above);
+    `textures` maps the JAX Textures' field names to arrays
+    (`textures_from_numpy`; None = untextured).
     """
     n_mat = np.asarray(materials["color"]).shape[0]
     mats = {k: _tensor(materials[k], np.float32)
@@ -93,7 +113,9 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
     return T.Scene(camera=cam, settings=settings or T.RenderSettings(),
                    materials=T.Materials(**mats), geoms=T.Geoms(**geom_t),
                    meshes=meshes or T.MeshBundle.empty(),
-                   packed_meshes=tuple(packed_meshes))
+                   packed_meshes=tuple(packed_meshes),
+                   textures=(None if textures is None
+                             else textures_from_numpy(textures)))
 
 
 def _param_tensors(params, device) -> RenderParams:

@@ -3,8 +3,9 @@
 K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K2's
 any-hit mode on the shadow rays of a NEE iteration, K3 in both schedules
 and both node-row layouts and K4 (csrc/bvh_binary.cu), the probes P1/P2
-(csrc/gather.cu, csrc/extract_cost.cu), and a NEE iteration on the card
-against the CPU. Every test here
+(csrc/gather.cu, csrc/extract_cost.cu) and P1 as the texture path's
+fetch (ops/texfetch.py), and a NEE iteration and a textured iteration on
+the card against the CPU. Every test here
 is `cuda`-marked and skips without a card. The file imports neither JAX
 nor the JAX package, so it runs where they are absent:
 
@@ -25,6 +26,7 @@ from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
 from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
+from project3_cuda_path_tracer_tpu_torch.ops import texfetch
 from project3_cuda_path_tracer_tpu_torch.render.integrator import \
     build_trace_config
 from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
@@ -551,3 +553,69 @@ def test_nee_iteration_card_matches_cpu(name):
     flips = (f3[0] != f3[1]).any(axis=0)
     assert flips.mean() <= 0.1
     assert_lane_contract(imgs[0][:, ~flips], imgs[1][:, ~flips])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["shared", "fused"])
+def test_texfetch_matches_plain_on_card(table):
+    """ops/texfetch.take_u32 on the card is P1 (counted in
+    exp_gather.LAUNCHES), bit for bit with gather_plain: on a 64 KB table
+    (the shared-memory instance) and on textured_env's 1.5 MB fused
+    atlas+env table (the L2 instance), with 2048x2048 lanes; take_f32
+    carries float bits; an int64 or strided index raises."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    if table == "shared":
+        tab = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, 16384)
+                               .astype(np.int32)).cuda()
+    else:
+        tx = texfetch.fuse(load_scene(os.path.join(
+            SCENES, "textured_env.txt")).textures)
+        tab = tx.fused_packed.cuda()
+        assert tab.numel() == 512 * 512 + 512 * 256
+    want_k = 1 if table == "shared" else 0
+    assert P1.instance_for(tab.numel() * 4) == want_k
+    idx = torch.from_numpy(rng.integers(0, tab.numel(), 2048 * 2048)
+                           .astype(np.int32)).cuda()
+    before = P1.LAUNCHES
+    got = texfetch.take_u32(tab, idx)
+    torch.cuda.synchronize()
+    assert P1.LAUNCHES == before + 1
+    assert torch.equal(got, P1.gather_plain(tab, idx))
+    f = tab.view(torch.float32)
+    assert torch.equal(texfetch.take_f32(f, idx).view(torch.int32),
+                       P1.gather_plain(tab, idx))
+    with pytest.raises(TypeError):
+        texfetch.take_u32(tab, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        texfetch.take_u32(tab, idx[::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flags", [
+    ("textured_env", {}), ("textured_env", {"bilinear_fast": True}),
+    ("textured_env", {"nee": True}), ("textured_env_proc", {})])
+def test_textured_iteration_card_matches_cpu(name, flags):
+    """A stratified iteration of a textured scene at 64x64 depth 8 on the
+    card (the wavefront route: K2 on the torus, P1 on the texel fetches of
+    textured_env) against the same iteration on the CPU, under the lane
+    contract."""
+    _need_card()
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        scene = load_scene(os.path.join(SCENES, name + ".txt"))
+        scene.camera.resolution = (64, 64)
+        scene.camera.derive()
+        scene.settings.trace_depth = 8
+        scene.settings.stratified = True
+        for k, v in flags.items():
+            setattr(scene.settings, k, v)
+        scene.settings.bilinear = scene.settings.bilinear_fast
+        r = Renderer(scene, device=dev)
+        assert r.route == "wavefront"
+        before = P1.LAUNCHES
+        imgs.append(r.render(1).reshape(-1, 3).T.cpu().numpy())
+        if dev == "cuda":
+            assert (P1.LAUNCHES > before) == (name == "textured_env")
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
+    assert_lane_contract(imgs[0], imgs[1])

@@ -87,6 +87,7 @@ def test_batched_spheres_match_unrolled_and_jax():
         ref_t = torch.where(closer, h.t, ref_t)
         ref = h if ref is None else wf.HitP(*(
             wf.vec.where(closer, a, b) if isinstance(a, V3)
+            else None if a is None  # HitP.tan, absent without tangents
             else torch.where(closer, a, b) for a, b in zip(h, ref)))
     hit_b = bat.t.numpy() < 1e29
     hit_r = ref.t.numpy() < 1e29

@@ -150,13 +150,14 @@ def test_supports_accepts_cornell():
 @pytest.mark.parametrize("case,reason", [
     ("cornell_glossy", "SPECEX"), ("mesh", "mesh"),
     ("textured_env", "texture atlas"), ("sky", "sky"),
-    ("constant_env", "constant environment")])
+    ("constant_env", "constant environment"), ("checker", "checker")])
 def test_supports_rejects(case, reason):
-    """The JAX supports() accepts glossy, sky and constant-environment
-    scenes and renders them without those terms; the port's refuses them.
-    `mesh` is cornell with one geom turned into a mesh; `textured_env` is
-    that scene's tables with its meshes turned into cubes, so that the
-    textures alone decide."""
+    """The JAX supports() accepts glossy, sky, constant-environment and
+    checkered scenes and renders them without those terms; the port's
+    refuses them, so they take the wavefront route. `mesh` is cornell with
+    one geom turned into a mesh; `textured_env` is that scene's tables with
+    its meshes turned into cubes, so that the textures alone decide;
+    `checker` is cornell with a CHECKER on its white walls."""
     if case == "textured_env":
         scene = _from_jax(case)
         scene.geoms.type[scene.geoms.type == PT.MESH] = PT.CUBE
@@ -168,6 +169,8 @@ def test_supports_rejects(case, reason):
             scene.geoms.type[-1] = PT.MESH
         elif case == "sky":
             scene.textures.sky[0] = 1.0
+        elif case == "checker":
+            scene.textures.checker_scale[1] = 8.0
         else:
             scene.textures.env[0, 0] = torch.tensor([0.2, 0.3, 0.4])
             scene.textures.env_enabled = torch.tensor(1.0)

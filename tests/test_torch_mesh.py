@@ -235,7 +235,8 @@ def test_binary_packing_renders_like_bvh8(blob):
 
 def test_renderer_dispatch():
     """The scene decides the route: cornell and glass stay on the
-    megakernel; glossy goes to the wavefront stages; the sky raises."""
+    megakernel; glossy and the procedural sky go to the wavefront
+    stages."""
     routes = {name: Renderer(load_scene(os.path.join(SCENES, name + ".txt")),
                              device="cpu").route
               for name in ("cornell", "cornell_glass", "cornell_glossy")}
@@ -243,8 +244,7 @@ def test_renderer_dispatch():
                       "cornell_glossy": "wavefront"}
     sky = load_scene(os.path.join(SCENES, "cornell.txt"))
     sky.textures.sky[0] = 1.0
-    with pytest.raises(NotImplementedError, match="sky"):
-        Renderer(sky, device="cpu")
+    assert Renderer(sky, device="cpu").route == "wavefront"
 
 
 _TINY_OBJ = """v -0.5 0 -0.5

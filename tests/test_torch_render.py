@@ -97,12 +97,15 @@ def test_cuda_device_is_never_substituted():
 
 
 def test_renderer_refuses_unsupported_scene():
-    """A feature no ported stage covers (the procedural sky) raises and
-    names its slice; the glossy lobe, which only the megakernel lacks, now
-    takes the wavefront route (tests/test_torch_mesh.py)."""
+    """A feature no ported stage covers (spectral dispersion) raises and
+    names its slice; the procedural sky, ported with slice D, now takes the
+    wavefront route, as the glossy lobe does (tests/test_torch_mesh.py)."""
     scene = load_scene(os.path.join(SCENES, "cornell.txt"))
     scene.textures.sky[0] = 1.0
-    with pytest.raises(NotImplementedError, match="sky.*slice D"):
+    assert Renderer(scene, device="cpu").route == "wavefront"
+    scene = load_scene(os.path.join(SCENES, "cornell.txt"))
+    scene.materials.dispersion[0] = 0.05
+    with pytest.raises(NotImplementedError, match="dispersion.*slice E"):
         Renderer(scene, device="cpu")
 
 
@@ -118,7 +121,7 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for want in ('models.inverse', 'models.optim', 'tools.exp_gather',\n"
-        "             'tools.exp_extract_cost', 'ops.nee'):\n"
+        "             'tools.exp_extract_cost', 'ops.nee', 'ops.texfetch'):\n"
         "    assert p.__name__ + '.' + want in names, want\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax') or m.startswith(\n"
