@@ -50,6 +50,18 @@ once) and drives these paths:
     (nearest) and on env NEE's shadow rays (any hit); --bilinear and
     --bilinear-fast against nearest; env-map and mixed NEE at 512x512
     against the plain render; the card against the CPU at 64x64;
+  - the integrator features (slice E) through `Renderer`: mesh.txt with
+    --stratified --sort --compact (8 K2 launches an iteration, the image
+    bit for bit the identity order's; K2 held bit for bit against its
+    plain version on the compacted bounce-1 wavefront and timed beside the
+    same rays in the identity order), with --russian-roulette, and with
+    the first-bounce cache (8 K2 launches, then 7 an iteration, within
+    1e-5 of the uncached render); cornell_dof with --sort (bit for bit);
+    scenes/sdf.txt and scenes/dispersion.txt at 800x800 depth 8 (ms,
+    kernels, busy share, the card against the CPU, dispersion's split
+    bands); Russian roulette against K1's plain render; the Sobol
+    sampler's RMSE beside the lattice's; the CLI with --clamp, --gamma and
+    --aces;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -617,8 +629,9 @@ def lane_utilisation(pops: torch.Tensor) -> float:
     return float(w.sum() / (32 * w.max(dim=1).values).sum())
 
 
-def mesh_phases(outdir: str, gpu: str) -> list:
-    """Every mesh-path phase; returns the `kernels` entries of K2-K4."""
+def mesh_phases(outdir: str, gpu: str):
+    """Every mesh-path phase; returns the `kernels` entries of K2-K4 and the
+    loaded mesh.txt scene (its SAH build is paid once)."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -847,7 +860,7 @@ def mesh_phases(outdir: str, gpu: str) -> list:
                             bounce1_ms=k34[(inst, "bounce-1")][0],
                             bounce1_bound_ms=b1["bound_ms"]))
     entries[1]["persistent_ms"] = k34[("K3 persistent", "bounce-0")][0]
-    return entries
+    return entries, scene
 
 
 def mesh_nee(scene, gpu: str) -> dict:
@@ -2091,14 +2104,18 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
         raise AssertionError(f"fit recovered {got}, not 0.98 +- 0.2")
 
 
-def profile_one(fn, top: int = 6) -> dict:
+def profile_one(fn, top: int = 6, host_ops: bool = True) -> dict:
     """One call of `fn` under torch.profiler: device time of its kernels
     against the wall time of the call (the device-busy share), and the
-    `top` kernels by device time (name, launches, us)."""
+    `top` kernels by device time (name, launches, us). `host_ops=False`
+    records the device activity alone, which spares the profiler a host
+    event per op on iterations of 10^5 eager ops."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2286,6 +2303,366 @@ def probe_phases(gpu: str) -> list:
              chain_floor_ns_per_step=chain["floors"])]
 
 
+def settings_of(scene, res: int = 0, depth: int = 0, **settings):
+    """A copy of `scene` (its tables shared) at res x res and depth when
+    given, with RenderSettings fields `settings`."""
+    cam = copy.deepcopy(scene.camera)
+    if res:
+        cam.resolution = (res, res)
+        cam.derive()
+    st = dataclasses.replace(scene.settings, **settings)
+    if depth:
+        st.trace_depth = depth
+    return dataclasses.replace(scene, camera=cam, settings=st)
+
+
+def iteration_ms(renderers: dict, gpu: str, config: str) -> dict:
+    """Each renderer's ms an iteration (CUDA events around 3 steps, after
+    one warm-up), timed twice in turns (A B .. B A), then one step of each
+    under torch.profiler's device activity (kernels, device busy share).
+    `renderers` maps a metric tag to a Renderer."""
+    tags = list(renderers)
+    runs = {t: [] for t in tags}
+    for order in (tags, tags[::-1]):
+        for t in order:
+            runs[t].append(time_ms(renderers[t].step, 3,
+                                   warm=0 if runs[t] else 1))
+    out = {}
+    for t in tags:
+        r = renderers[t]
+        out[t] = dict(metric=f"{t}_ms_per_iteration",
+                      value=float(np.mean(runs[t])), runs=runs[t],
+                      route=r.route, config=config, gpu=gpu,
+                      **profile_one(r.step, host_ops=False))
+        log(json.dumps(out[t]))
+    return out
+
+
+def dead_runs(t_bound: torch.Tensor) -> int:
+    """The number of maximal runs of dead lanes (!(t_bound > 0))."""
+    dead = ~(t_bound > 0)
+    return int(dead[0]) + int((dead[1:] & ~dead[:-1]).sum())
+
+
+def k2_compacted(gpu: str, p8, sorted_waves: list, plain_waves: list,
+                 buckets: int) -> dict:
+    """K2 on the bounce-1 wavefront of one --sort --compact iteration of
+    mesh.txt against traverse8_plain bit for bit, pops included. That
+    wavefront is bounce 0's paths in bucket order (by the material they
+    hit, then the misses): each bucket's paths end or go on together, so
+    its dead lanes lie in at most `buckets` runs, where the identity order
+    scatters them. Held (stream held, 20 launches; twice, in turns) beside
+    K2's held time on the same iteration's bounce-1 wavefront in the
+    identity order, the plain traversal's time, and the bound (the tree
+    rows the live rays read, once; the same rays in either order)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        time_ms as device_ms
+    qo, qd, _, kw = sorted_waves[1]
+    tb = kw["t_bound"]
+    k = P8.traverse8(qo, qd, p8, t_bound=tb, return_pops=True)
+    t0 = time.perf_counter()
+    p = P8.traverse8_plain(qo, qd, p8, t_bound=tb)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = same_bits(k, p)
+    n = int(tb.numel())
+    live = tb > 0
+    n_live = int(live.sum())
+    lo, ld = tuple(c[live] for c in qo), tuple(c[live] for c in qd)
+    rd = tree_reads(lambda pk: P8.traverse8_plain(lo, ld, pk, tb[live]), p8,
+                    "nodes")
+    bd = bound(n_live * (7 + 7) * 4 + (n - n_live) * (1 + 7) * 4
+               + rd["node_rows"] * NODE8_BYTES
+               + rd["tri_rows"] * TRI_TEST_BYTES
+               + rd["hit_tris"] * TRI_HIT_BYTES,
+               rd["node_visits"] * 8 * BOX_OPS + rd["tri_tests"] * TRI_OPS)
+    uo, ud, _, ukw = plain_waves[1]
+    ub = ukw["t_bound"]
+    if int((ub > 0).sum()) != n_live:
+        raise AssertionError("the sorted and the identity-order bounce-1 "
+                             "wavefronts hold different live rays")
+    held, held_plain_order = [], []
+    for _ in range(2):  # in turns: compacted, identity order
+        held.append(device_ms(lambda: P8._launch(
+            "persistent", qo, qd, p8, tb), 20, warm=3))
+        held_plain_order.append(device_ms(lambda: P8._launch(
+            "persistent", uo, ud, p8, ub), 20, warm=3))
+    ms, ms_id = float(np.mean(held)), float(np.mean(held_plain_order))
+    runs = dead_runs(tb), dead_runs(ub)
+    rec = dict(metric="K2_compacted_ms", wavefront="bounce-1 sort+compact",
+               rays=n, live=n_live, dead_runs=runs[0],
+               identity_order_dead_runs=runs[1], bitwise=equal,
+               value=ms, runs=held, identity_order_ms=ms_id,
+               identity_order_runs=held_plain_order, plain_ms=plain_ms,
+               mean_pops_per_ray=float(k[5].float().mean()),
+               max_pops=int(k[5].max()), **bd, **rd,
+               share_of_bound=bd["bound_ms"] / ms, gpu=gpu)
+    log(json.dumps(rec))
+    if not (equal and runs[0] <= buckets and runs[0] < runs[1]):
+        raise AssertionError(f"K2 on the compacted wavefront: {rec}")
+    return rec
+
+
+def mesh_integrator(scene, gpu: str):
+    """mesh.txt at 1024x1024 depth 8 under slice E's knobs: the --stratified
+    --sort --compact path (one iteration with every count set to 0 just
+    before it: 8 K2 launches, nothing else), its image after 2 iterations
+    bit for bit the identity order's, K2 on its compacted bounce-1
+    wavefront (`k2_compacted`), ms an iteration for sort+compact, Russian
+    roulette and plain in turns, and the first-bounce cache (no AA, 4
+    iterations: 8 K2 launches, then 7 each; within 1e-5 of the uncached
+    render). Returns K2's keys for the `kernels` line and the ms an
+    iteration of each configuration."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    every = lambda *a, **k: True  # noqa: E731
+    srt = Renderer(settings_of(scene, stratified=True, sort_materials=True,
+                               compact=True), device="cuda")
+    plain = Renderer(settings_of(scene, stratified=True), device="cuda")
+    zero_counts()
+    with capturing(P8, "traverse8", every, limit=8) as sorted_waves:
+        srt.step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rec = dict(phase="mesh sort+compact path", scene="scenes/mesh.txt",
+               flags="--stratified --sort --compact", route=srt.route,
+               depth=srt.cfg.trace_depth, iterations=1, **counts)
+    log(json.dumps(rec))
+    if (srt.route != "wavefront" or counts["k2"] != srt.cfg.trace_depth
+            or any(v for k, v in counts.items() if k != "k2")):
+        raise AssertionError(f"mesh sort+compact path: {rec}")
+    with capturing(P8, "traverse8", every, limit=8) as plain_waves:
+        plain.step()
+    srt.step()
+    plain.step()
+    torch.cuda.synchronize()
+    equal = torch.equal(srt.accum, plain.accum)
+    log(json.dumps(dict(check="mesh 1024x1024 d8 2spp: sort+compact vs "
+                              "identity order", bitwise=equal,
+                        mean=float(srt.accum.mean() / 2))))
+    if not equal:
+        raise AssertionError("mesh: the sorted image differs")
+    k2c = k2_compacted(gpu, srt.packed_meshes[0], sorted_waves, plain_waves,
+                       scene.num_materials + 2)
+
+    # in turns, all three stratified: plain, sort+compact, roulette alone
+    rr = Renderer(settings_of(scene, stratified=True, russian_roulette=True),
+                  device="cuda")
+    times = iteration_ms({"mesh_plain": plain, "mesh_sort_compact": srt,
+                          "mesh_russian_roulette": rr}, gpu,
+                         "mesh.txt 1024x1024 depth 8 --stratified")
+
+    # the first-bounce cache: no AA, 4 iterations, each with its K2 count
+    noaa = settings_of(scene, antialias=False, seed=3)
+    cached = Renderer(settings_of(noaa, first_bounce_cache=True),
+                      device="cuda")
+    per_step = []
+    for _ in range(4):
+        zero_counts()
+        cached.step()
+        torch.cuda.synchronize()
+        per_step.append(read_counts()["k2"])
+    ref = Renderer(noaa, device="cuda")
+    ref.render(4)
+    gap = float((cached.accum - ref.accum).abs().max() / 4)
+    depth = cached.cfg.trace_depth
+    rec = dict(check="mesh 1024x1024 d8 first-bounce cache, no AA, 4 spp",
+               k2_launches_per_iteration=per_step, max_abs_gap=gap,
+               limit=1e-5, route=cached.route)
+    log(json.dumps(rec))
+    if per_step != [depth] + [depth - 1] * 3 or gap > 1e-5:
+        raise AssertionError(f"first-bounce cache: {rec}")
+    times.update(iteration_ms({"mesh_first_bounce_cache": cached}, gpu,
+                              "mesh.txt 1024x1024 depth 8 no AA, cache"))
+    k2 = dict(compacted_launches=counts["k2"], compacted_ms=k2c["value"],
+              compacted_identity_order_ms=k2c["identity_order_ms"],
+              compacted_plain_ms=k2c["plain_ms"],
+              compacted_bound_ms=k2c["bound_ms"],
+              compacted_bound_by=k2c["bound_by"], cached_launches=per_step)
+    return k2, {k: v["value"] for k, v in times.items()}
+
+
+def sdf_dispersion(name: str, outdir: str, gpu: str) -> dict:
+    """scenes/<name>.txt at its own 800x800 depth 8 through `Renderer`: the
+    route (wavefront, no K1) of one iteration with the counts set to 0
+    before it, one iteration's kernels and busy share (torch.profiler's
+    device activity), then a 16-spp image whose iterations are timed by
+    CUDA events (ms an iteration); the card against the CPU at 64x64 depth
+    8, stratified, with the share of divergent lanes."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    path = os.path.join(ROOT, "scenes", name + ".txt")
+    scene = load_scene(path)
+    r = Renderer(scene, device="cuda")
+    w, h = scene.camera.resolution
+    zero_counts()
+    r.step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if ((w, h, r.cfg.trace_depth) != (800, 800, 8) or r.route != "wavefront"
+            or any(counts.values())):
+        raise AssertionError(f"{name}: {w}x{h} d{r.cfg.trace_depth}, route "
+                             f"{r.route}, launches {counts}")
+    prof = profile_one(r.step, host_ops=False)
+    r.reset()
+    rec = dict(metric=f"{name}_ms_per_iteration",
+               value=time_ms(r.step, 16, warm=0), route=r.route,
+               config=f"{name}.txt 800x800 depth 8, the 16 spp of its image",
+               gpu=gpu, **prof)
+    log(json.dumps(rec))
+    img = r.image()
+    if not np.isfinite(img).all() or (img < 0).any() or img.mean() <= 0:
+        raise AssertionError(f"{name} image is not finite and > 0")
+    png = r.save(os.path.join(outdir, f"{name}_800x800_16spp"))
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        small = sized(path, 64, 8)
+        small.settings.stratified = True
+        imgs.append(Renderer(small, device=dev).render(1).cpu())
+    cmp = compare_lanes(f"{name} 64x64 d8: card vs CPU", imgs[0], imgs[1],
+                        ATOL, FRAC)
+    return dict(ms=rec["value"], kernels=rec.get("kernels_launched"),
+                busy=rec.get("device_busy_share"), image=img,
+                mean=img.mean(axis=(0, 1)).tolist(), png=png,
+                card_vs_cpu_diverged=cmp["diverged_frac"], scene=scene)
+
+
+def integrator_phases(mesh_scene, outdir: str, gpu: str) -> dict:
+    """Slice E on the card (`mesh_integrator`, then the primitive, SDF and
+    dispersion scenes): cornell_dof 800x800 d8 --sort --stratified
+    (BASELINE config 3) bit for bit with the identity order on the
+    wavefront; sdf.txt and dispersion.txt at their own 800x800 d8
+    (`sdf_dispersion`), dispersion's red and blue splitting against the
+    same scene without dispersion (the JAX tests/test_dispersion.py:40
+    check); Russian roulette on cornell against K1's plain render; the
+    Sobol sampler's 8-spp RMSE beside the lattice's against a 1,024-spp K1
+    reference, both on the wavefront route (the lattice there through the
+    first-bounce cache knob, which AA leaves without a cache); the CLI
+    with --clamp 4 --gamma 2.2 --aces. Prints its own wall time; returns
+    K2's keys for the `kernels` line."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start - sum(marks.values())
+    k2, mesh_ms = mesh_integrator(mesh_scene, gpu)
+    mark("mesh")
+
+    # BASELINE config 3: sorted-by-material shading, 800x800
+    dof = load_scene(os.path.join(ROOT, "scenes", "cornell_dof.txt"))
+    srt = Renderer(settings_of(dof, 800, 8, stratified=True,
+                               sort_materials=True), device="cuda")
+    srt.render(2)
+    acc = torch.zeros_like(srt.accum)
+    cfg = dataclasses.replace(srt.cfg, sort_materials=False)
+    for it in range(2):
+        acc.add_(PI.to_image(PI.trace_wavefront(
+            *srt.tables, cfg, iteration=it), cfg))
+    torch.cuda.synchronize()
+    equal = torch.equal(acc, srt.accum)
+    log(json.dumps(dict(check="cornell_dof 800x800 d8 --sort --stratified "
+                              "2spp vs the identity-order wavefront",
+                        route=srt.route, bitwise=equal)))
+    if srt.route != "wavefront" or not equal:
+        raise AssertionError("cornell_dof --sort: the image differs")
+    iteration_ms({"cornell_dof_sort": srt}, gpu,
+                 "cornell_dof.txt 800x800 depth 8 --sort --stratified")
+    mark("cornell_dof")
+
+    # SDFs and dispersion at their own size
+    res = {name: sdf_dispersion(name, outdir, gpu)
+           for name in ("sdf", "dispersion")}
+    flat = res["dispersion"].pop("scene")
+    flat.materials.dispersion = torch.zeros_like(flat.materials.dispersion)
+    r0 = Renderer(flat, device="cuda")
+    r0.render(16)
+    img, img0 = res["dispersion"]["image"], r0.image()
+    rb, rb0 = (float(np.abs(a[..., 0] - a[..., 2]).mean())
+               for a in (img, img0))
+    rec = dict(check="dispersion 800x800 d8 16spp: red and blue split",
+               mean_abs_red_minus_blue=rb, without_dispersion=rb0,
+               channel_means=res["dispersion"]["mean"],
+               channel_means_without=img0.mean(axis=(0, 1)).tolist())
+    log(json.dumps(rec))
+    if not rb > 3.0 * max(rb0, 1e-6):
+        raise AssertionError(f"dispersion does not split the bands: {rec}")
+    mark("sdf_dispersion")
+
+    # Russian roulette against K1's plain render, 16 spp
+    cornell = load_scene(SCENE)
+    rr = Renderer(settings_of(cornell, russian_roulette=True),
+                  device="cuda")
+    rr_it, _ = channel_means(rr, 16)
+    mk.LAUNCHES = 0
+    k1 = Renderer(cornell, device="cuda")
+    k1_it, _ = channel_means(k1, 16)
+    rel = np.abs(rr_it.mean(0) - k1_it.mean(0)) / k1_it.mean(0)
+    rec = dict(check="cornell --russian-roulette 800x800 d8 16spp mean vs "
+                     "K1 plain", route=rr.route, k1_launches=mk.LAUNCHES,
+               rr=rr_it.mean(0).tolist(), plain=k1_it.mean(0).tolist(),
+               rel_gap=rel.tolist(),
+               se_gap=(np.hypot(rr_it.std(0), k1_it.std(0)) / 4).tolist(),
+               limit_rel=0.01)
+    log(json.dumps(rec))
+    if rr.route != "wavefront" or k1.route != "megakernel" or \
+            (rel > 0.01).any():
+        raise AssertionError(f"Russian roulette mean: {rec}")
+    iteration_ms({"cornell_russian_roulette": rr}, gpu,
+                 "cornell.txt 800x800 depth 8 --russian-roulette")
+    mark("russian_roulette")
+
+    # Sobol against lattice, both on the wavefront route, 8 spp
+    ref = Renderer(settings_of(cornell, seed=99), device="cuda")
+    ref.render(1024)
+    truth = ref.accum / 1024
+    rmse, samplers = {}, {}
+    for impl in ("sobol", "lattice"):
+        r = Renderer(settings_of(cornell, stratified=True, strat_impl=impl,
+                                 first_bounce_cache=True), device="cuda")
+        if r.route != "wavefront" or r._cached_first_hit() is not None:
+            raise AssertionError(f"{impl}: route {r.route}")
+        r.render(8)
+        rmse[impl] = float(((r.accum / 8 - truth) ** 2).mean().sqrt())
+        samplers[f"cornell_{impl}"] = r
+    iteration_ms(samplers, gpu, "cornell.txt 800x800 depth 8 --stratified "
+                 "--sampler sobol|lattice")
+    log(json.dumps(dict(check="cornell 800x800 d8 8spp RMSE vs K1 1024spp",
+                        rmse_sobol=rmse["sobol"],
+                        rmse_lattice=rmse["lattice"],
+                        ratio=rmse["sobol"] / rmse["lattice"], gpu=gpu)))
+    mark("samplers")
+
+    cli = subprocess.run(
+        [sys.executable, "-m", PKG, SCENE, "--iterations", "4",
+         "--device", "cuda", "--clamp", "4", "--gamma", "2.2", "--aces",
+         "--metrics", "--outdir", outdir, "--out", "cornell_clamp_cli_4spp"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0 or "route=wavefront" not in cli.stderr:
+        raise AssertionError(f"clamp CLI ({cli.returncode}):\n{cli.stderr}")
+    metrics = json.loads(cli.stderr.strip().splitlines()[-1])
+    if not os.path.exists(metrics["output"]):
+        raise AssertionError("clamp CLI wrote no PNG")
+    log(json.dumps(dict(phase="clamp gamma aces cli", **metrics)))
+    mark("cli")
+    seconds = time.perf_counter() - t_start
+    log(json.dumps(dict(metric="integrator_summary", seconds=seconds,
+                        seconds_by_part=marks,
+                        mesh_ms=mesh_ms,
+                        sdf_ms=res["sdf"]["ms"],
+                        dispersion_ms=res["dispersion"]["ms"],
+                        sdf_kernels=res["sdf"]["kernels"],
+                        dispersion_kernels=res["dispersion"]["kernels"],
+                        sdf_card_vs_cpu=res["sdf"]["card_vs_cpu_diverged"],
+                        dispersion_card_vs_cpu=res["dispersion"][
+                            "card_vs_cpu_diverged"],
+                        rmse_ratio_sobol_lattice=rmse["sobol"]
+                        / rmse["lattice"], gpu=gpu)))
+    return k2
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--outdir", default=os.path.join(ROOT, "out",
@@ -2303,7 +2680,9 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.utils import cuda_build
     for path in (SCENE, GLASS, GOLDEN, MESH, LIGHTS, MANY, MANY256, TEXTURED,
-                 TEXTURED_PROC):
+                 TEXTURED_PROC, *(os.path.join(ROOT, "scenes", n + ".txt")
+                                  for n in ("sdf", "dispersion",
+                                            "cornell_dof"))):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2445,7 +2824,7 @@ def main() -> int:
     k1 = k1_timing(gpu, table, cfg)
 
     # ---- 8. the mesh path ---------------------------------------------------
-    mesh = mesh_phases(args.outdir, gpu)
+    mesh, mesh_scene = mesh_phases(args.outdir, gpu)
 
     # ---- 9. the train step --------------------------------------------------
     train_phases(gpu, r.accum / r.iteration)
@@ -2455,6 +2834,10 @@ def main() -> int:
 
     # ---- 9c. textures and environment lighting ------------------------------
     tex = textured_phases(args.outdir, gpu)
+
+    # ---- 9d. the integrator features: sort, compaction, roulette, Sobol,
+    # SDFs, dispersion, the first-bounce cache, the clamp ---------------------
+    mesh[0].update(integrator_phases(mesh_scene, args.outdir, gpu))
 
     # ---- 10. the probes P1 and P2 -------------------------------------------
     probes = probe_phases(gpu)

@@ -13,14 +13,10 @@ import argparse
 import os
 import sys
 
-_SLICE_E = "slice E (integrator features)"
 _SLICE_F = "slice F (render services)"
 _SLICE_H = "slice H (the app)"
 # JAX CLI flag -> why the port does not take it yet
 UNPORTED_FLAGS = {
-    "--sort": _SLICE_E, "--compact": _SLICE_E,
-    "--russian-roulette": _SLICE_E, "--sampler": _SLICE_E, "--clamp": _SLICE_E, "--gamma": _SLICE_E,
-    "--aces": _SLICE_E,
     "--adaptive": _SLICE_F, "--adaptive-epoch": _SLICE_F,
     "--denoise": _SLICE_F, "--checkpoint-every": _SLICE_F,
     "--resume": _SLICE_F, "--sharded": "slice G (sharding)",
@@ -36,8 +32,8 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m project3_cuda_path_tracer_tpu_torch",
-        description="Path tracer, PyTorch + CUDA port (primitive, mesh "
-                    "and textured scenes)")
+        description="Path tracer, PyTorch + CUDA port (primitive, SDF, "
+                    "mesh and textured scenes)")
     p.add_argument("scene", help="scene file (reference text format)")
     p.add_argument("--iterations", type=int, default=None,
                    help="override the scene's ITERATIONS")
@@ -49,9 +45,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hdr", action="store_true", help="write Radiance .hdr")
     p.add_argument("--no-antialias", action="store_true",
                    help="disable stochastic AA jitter")
+    p.add_argument("--sort", action="store_true",
+                   help="material-key sort paths before shading")
+    p.add_argument("--compact", action="store_true",
+                   help="compact terminated paths each bounce")
+    p.add_argument("--russian-roulette", action="store_true",
+                   help="unbiased stochastic termination from bounce 3")
     p.add_argument("--stratified", action="store_true",
-                   help="stratified sampling (per-pixel rotated lattice "
-                        "camera and BSDF draws)")
+                   help="stratified sampling (per-pixel rotated "
+                        "low-discrepancy camera/NEE/BSDF sequences)")
+    p.add_argument("--sampler", choices=("lattice", "sobol"),
+                   default="lattice",
+                   help="stratified-sampling implementation: lattice "
+                        "(default) or Owen-scrambled sobol (best "
+                        "per-sample RMSE, more integer work a draw)")
     p.add_argument("--bilinear", action="store_true",
                    help="bilinear texture/env filtering (4 corner "
                         "fetches)")
@@ -71,6 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "candidates a frame (implies --nee)")
     p.add_argument("--restir-cap", type=float, default=20.0,
                    help="ReSTIR reservoir count cap, in units of M")
+    p.add_argument("--clamp", type=float, default=0.0, metavar="R",
+                   help="per-sample radiance clamp (firefly suppression; "
+                        "biased, opt-in)")
+    p.add_argument("--gamma", type=float, default=0.0, metavar="G",
+                   help="apply 1/G display gamma to the saved PNG "
+                        "(reference default: none, linear)")
+    p.add_argument("--aces", action="store_true",
+                   help="ACES filmic tonemap on the saved PNG "
+                        "(Narkowicz 2015 fit; .hdr output stays linear)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="emit a JSON-line metrics record to stderr")
@@ -92,6 +108,11 @@ def main(argv=None) -> int:
             return 2
     if rest:
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.restir and (args.sort or args.compact):
+        print("--restir is incompatible with --megakernel/--sort/"
+              "--compact/--adaptive/--sharded (identity single-device "
+              "path order required)", file=sys.stderr)
+        return 2
 
     from ..render.integrator import Renderer
     from ..scene.parser import load_scene
@@ -105,7 +126,12 @@ def main(argv=None) -> int:
     if args.depth is not None:
         st.trace_depth = args.depth
     st.antialias = not args.no_antialias
+    st.sort_materials = args.sort
+    st.compact = args.compact
+    st.russian_roulette = args.russian_roulette
     st.stratified = args.stratified
+    st.strat_impl = args.sampler
+    st.clamp = args.clamp
     st.bilinear = args.bilinear or args.bilinear_fast
     st.bilinear_fast = args.bilinear_fast
     st.seed = args.seed
@@ -126,7 +152,8 @@ def main(argv=None) -> int:
     renderer.step_many(st.iterations)
     synchronize(renderer.device)
     metrics.stop(st.iterations)
-    out = renderer.save(base, hdr=args.hdr)
+    out = renderer.save(base, hdr=args.hdr, gamma=args.gamma,
+                        aces=args.aces)
     print(f"saved {out}", file=sys.stderr)
     if args.metrics:
         metrics.emit(final=True, output=out, device=str(renderer.device))

@@ -254,8 +254,8 @@ class InverseRenderer:
     with ``polish_steps`` two-render unbiased steps on the same optimizer
     state (default POLISH_STEPS, capped at half the fit). Mesh scenes
     recompute their hits differentiably; scenes with textures, checkers,
-    bump or normal maps, an env map or the sky raise NotImplementedError
-    (textured training is not ported). `device` is "cuda" or "cpu" and is
+    bump or normal maps, an env map, the sky, SDF geoms or dispersion raise
+    NotImplementedError (training through them is not ported). `device` is "cuda" or "cpu" and is
     never chosen for the caller."""
 
     # Adam's momentum horizon is 1/(1-b1) = 10 steps; three times that
@@ -267,7 +267,12 @@ class InverseRenderer:
                  trace_depth: Optional[int] = None, seed: int = 0,
                  history: bool = True, polish_steps: Optional[int] = None,
                  device: str = "cuda"):
-        integ.require_wavefront(scene)
+        mt = scene.materials
+        if (scene.geoms.type == T.SDF).any() or (
+                mt.dispersion is not None and (mt.dispersion > 0).any()):
+            raise NotImplementedError(
+                "training through SDF geoms or spectral dispersion is not "
+                "ported yet (ROADMAP.md Queue 1, textured training)")
         textured = integ.texture_features(scene)
         if textured is not None:
             raise NotImplementedError(

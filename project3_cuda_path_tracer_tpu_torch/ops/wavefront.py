@@ -15,9 +15,11 @@ procedural sky; the optional glossy Phong lobe, Fresnel refraction; direct
 lighting from area lights, the env map or both with one-sample MIS
 (ops/nee.py: the shadow rays are occlusion queries of `intersect_planar`,
 the MIS terms live in `shade_planar`), and the batched sphere pass of
-many-light scenes. Every 32-bit texel fetch goes through
-`ops.texfetch.take_u32` (kernel P1 on the card). SDFs and dispersion come
-with slice E.
+many-light scenes; SDF primitives sphere-traced in object space
+(ops/sdf.py) and spectral dispersion in the refractive lobe. Every 32-bit
+texel fetch goes through `ops.texfetch.take_u32` (kernel P1 on the card).
+The stratified draws come from the CP-rotated lattices or from Owen-
+scrambled Sobol pairs (ops/qmc.py).
 
 Reference: src/intersections.h:27-144 (slab + quadratic in object space,
 world-distance t, 1e-4 back-off) and scatterRay, src/interactions.h:44-79.
@@ -31,6 +33,8 @@ import torch
 
 from . import bvh8 as B8
 from . import pallas_bvh as PB
+from . import qmc
+from . import sdf as S
 from . import texfetch
 from . import vec
 from .vec import V3
@@ -52,6 +56,26 @@ def _max(x: torch.Tensor, c: float) -> torch.Tensor:
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip, as jax differentiates it (see `_max`)."""
     return torch.minimum(_max(x, lo), torch.tensor(hi, dtype=x.dtype))
+
+
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """torch.atan2 whose value for a lane does not depend on where the lane
+    sits in the wavefront. On the CPU torch computes the last few lanes of
+    each thread's range with a scalar routine that differs from its vector
+    one in the last bit, so a permuted wavefront (sort/compact) would change
+    those lanes; the float64 evaluation, rounded, hides that difference. On
+    the card every lane runs the same code."""
+    if y.is_cuda:
+        return torch.atan2(y, x)
+    return torch.atan2(y.double(), x.double()).to(y.dtype)
+
+
+def _pow(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """torch.pow with a tensor exponent, lane-position invariant as
+    `_atan2`."""
+    if x.is_cuda:
+        return torch.pow(x, e)
+    return torch.pow(x.double(), torch.as_tensor(e).double()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +103,8 @@ _R8A = (0.921599319633983, 0.8493453059498204,
         0.6648301819503516, 0.6127070433575812,
         0.5646703942932961, 0.5203998511981547)
 _PHI_INV = 0.6180339887498949
-_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 3: _R3A, 4: _R4A, 8: _R8A}
+_ALPHAS = {1: (_PHI_INV,), 2: _R2A, 3: _R3A, 4: _R4A,
+           5: _R4A + (_PHI_INV,), 8: _R8A}
 
 # "depth" slot of the camera dims (distinct from every bounce depth)
 CAMERA_SLOT = 0x7FFFFFFF
@@ -92,12 +117,24 @@ SALT_BOUNCE = 0x2545F491
 SALT_NEE_AREA = 0x7F4A7C15
 SALT_NEE_ENV = 0x1D872B41
 SALT_NEE_MIXED = 0x5B7E9D23
+SALT_RR = 0x68E31DA4  # Russian roulette's survival draw
+STRAT_IMPLS = ("lattice", "sobol")
 
 
 def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
-                      num_dims: int, salt0: int) -> Tuple[torch.Tensor, ...]:
-    """`num_dims` stratified uniform planes for (iteration, depth, pixel):
-    CP-rotated R_d lattices (the JAX "lattice" impl), bit for bit."""
+                      num_dims: int, salt0: int,
+                      impl: str = "lattice") -> Tuple[torch.Tensor, ...]:
+    """`num_dims` stratified uniform planes for (iteration, depth, pixel),
+    bit for bit with the JAX `stratified_planes`: CP-rotated R_d lattices
+    ("lattice"), or padded Owen-scrambled Sobol pairs ("sobol",
+    ops/qmc.sample_planes). Both are keyed only on (iteration, depth,
+    pixel), so a permuted wavefront draws the same values."""
+    if impl == "sobol":
+        return qmc.sample_planes(iteration, depth, pixel_index, num_dims,
+                                 salt0)
+    if impl != "lattice":
+        raise ValueError(f"stratified sampler must be one of {STRAT_IMPLS}, "
+                         f"got {impl!r}")
     dev = pixel_index.device
     it_f = torch.as_tensor(iteration, dtype=F32, device=dev)
     mix = (pixel_index.to(torch.int64) & _U32) ^ (
@@ -112,14 +149,15 @@ def generate_rays_planar(cam: dict, width: int, height: int,
                          generator: Optional[torch.Generator] = None,
                          antialias: bool = True, dof: bool = True,
                          motion: bool = True, stratified: bool = False,
-                         iteration=None, cam_u: Optional[torch.Tensor] = None):
+                         iteration=None, cam_u: Optional[torch.Tensor] = None,
+                         strat_impl: str = "lattice"):
     """Primary rays as (origin V3, dir V3, time [N], pixel_index [N]), path i
     at pixel (i % W, i // W).
 
     Camera draws (AA jitter x/y, lens disk r/phi, shutter time) come from,
     in this order of precedence: `cam_u` [5, N] injected uniforms in that
-    row order; the stratified lattice when `stratified` and `iteration` is
-    given; else `torch.rand` on `generator`."""
+    row order; the stratified sampler `strat_impl` when `stratified` and
+    `iteration` is given; else `torch.rand` on `generator`."""
     dev = cam["position"].device
     n = width * height
     idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -134,7 +172,7 @@ def generate_rays_planar(cam: dict, width: int, height: int,
             return tuple(cam_u[row + i] for i in range(num))
         if strat:
             return stratified_planes(iteration, CAMERA_SLOT, pixel_index,
-                                     num, salt)
+                                     num, salt, impl=strat_impl)
         u = torch.rand((num * n,), generator=generator, dtype=F32, device=dev)
         return tuple(u[i * n:(i + 1) * n] for i in range(num))
 
@@ -314,7 +352,7 @@ def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     else:
         flip = torch.where(outside, 1.0, -1.0).to(F32)
         n_local = V3(ip_obj.x * flip, ip_obj.y * flip, ip_obj.z * flip)
-        u = 0.5 + torch.atan2(ip_obj.z, ip_obj.x) / (2 * math.pi)
+        u = 0.5 + _atan2(ip_obj.z, ip_obj.x) / (2 * math.pi)
         # the 1e-7 inset keeps asin's derivative finite at the poles
         v = 0.5 + torch.asin(_clip(ip_obj.y / 0.5, -1.0 + 1e-7,
                                    1.0 - 1e-7)) / math.pi
@@ -329,6 +367,59 @@ def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                     t_world),
                 point=ip_world, surf=sf_world, u=u, v=v,
                 outside=outside, tan=tan)
+
+
+def _sdf_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
+                    g: int, kind: Tuple[int, int, int],
+                    tangents: bool = False) -> HitP:
+    """SDF geom g against the whole wavefront (the JAX `_sdf_hit_planar`):
+    the primitives' object-space convention, the surface found by sphere
+    tracing (`ops.sdf.march_local`) along the normalised object-space
+    direction, t returned as a world distance. The hit point backs off
+    RAY_EPS object units with a fused multiply-add, the primitives' rule
+    (`_fma`). The normal is the field's finite-difference gradient, flipped
+    for rays that start inside (the march flips the field's sign there);
+    the uv is spherical, from the local normal, and so is the tangent."""
+    inv = geoms.inverse_transform[g]
+    fwd = geoms.transform[g]
+    inv_tr = geoms.inverse_transpose[g]
+    params = geoms.sdf_params[g]
+    vel = geoms.velocity[g]
+    velx, vely, velz = vel[0], vel[1], vel[2]
+
+    o_shift = V3(o.x - velx * times, o.y - vely * times, o.z - velz * times)
+    qo = vec.xform_pt(inv, o_shift)
+    qd = vec.normalize(vec.xform_dir(inv, d))
+
+    t_obj, hit, outside = S.march_local(qo, qd, kind, params)
+
+    tb = t_obj - RAY_EPS
+    ip_obj = V3(*(_fma(tb, q, p) for q, p in zip(qd, qo)))
+    sf_obj = V3(*(_fma(t_obj, q, p) for q, p in zip(qd, qo)))
+    n_local = S.normal_local(sf_obj, kind, params)
+    n_local = vec.where(outside, n_local, -n_local)
+
+    ip_world = vec.xform_pt(fwd, ip_obj)
+    ip_world = V3(ip_world.x + velx * times, ip_world.y + vely * times,
+                  ip_world.z + velz * times)
+    sf_world = vec.xform_pt(fwd, sf_obj)
+    sf_world = V3(sf_world.x + velx * times, sf_world.y + vely * times,
+                  sf_world.z + velz * times)
+    t_world = vec.norm(o - ip_world)
+
+    u = 0.5 + _atan2(n_local.z, n_local.x) / (2 * math.pi)
+    v = 0.5 + torch.asin(torch.clamp(n_local.y, -1.0, 1.0)) / math.pi
+    tan = None
+    if tangents:
+        tan = vec.xform_dir(fwd, V3(-n_local.z, torch.zeros_like(u),
+                                    n_local.x))
+    normal = vec.normalize(vec.xform_dir(inv_tr, n_local))
+    return HitP(t=torch.where(hit, t_world, torch.full_like(t_world, BIG)),
+                normal=normal,
+                mat_id=geoms.material_id[g].to(torch.int64).expand_as(
+                    t_world),
+                point=ip_world, surf=sf_world, u=u, v=v, outside=outside,
+                tan=tan)
 
 
 def mesh_query(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms, g: int,
@@ -561,12 +652,15 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                      any_hit: bool = False,
                      max_t: Optional[torch.Tensor] = None,
                      sphere_batch: Sequence[int] = (),
-                     tangents: bool = False) -> HitP:
+                     tangents: bool = False,
+                     sdf_kinds: Sequence[Tuple[int, int, int]] = ()) -> HitP:
     """Nearest hit over all geoms (src/pathtrace.cu:176-199): a strict `<`
     merge in geom order, then misses become t = -1, material 0.
 
     Primitives are tested first (the spheres of `sphere_batch` in one
-    `_batched_spheres_planar` pass, before the others); their nearest hit
+    `_batched_spheres_planar` pass, before the others; SDF geom g sphere-
+    traced by `_sdf_hit_planar` with its kind `sdf_kinds[g]`, for nearest
+    and any hit alike, as in the JAX package); their nearest hit
     becomes the meshes' occlusion bound. MESH geom g traverses
     `packed_meshes[mesh_ids[g]]`, and `alive` ([N] bool) marks the lanes
     that may still hit: dead lanes take no part in the traversal.
@@ -590,10 +684,12 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
             if (differentiable_mesh or tangents) and meshes is None:
                 raise ValueError("differentiable_mesh and tangents need the "
                                  "MeshBundle")
+        elif gtype == T.SDF:
+            if g >= len(sdf_kinds) or geoms.sdf_params is None:
+                raise ValueError(f"SDF geom {g} has no kind or parameters "
+                                 "(TraceConfig.sdf_kinds, Geoms.sdf_params)")
         elif gtype not in (T.CUBE, T.SPHERE):
-            raise NotImplementedError(
-                "only cube, sphere and mesh geoms are ported (SDFs: "
-                "ROADMAP slice E)")
+            raise ValueError(f"geom {g} has an unknown type {gtype}")
     n = o.x.shape[0]
     z = torch.zeros((n,), dtype=F32, device=o.x.device)
     t_init = (torch.full((n,), BIG, dtype=F32, device=o.x.device)
@@ -624,7 +720,11 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
         best = merge(best, _batched_spheres_planar(o, d, times, geoms,
                                                    sphere_batch, tangents))
     for g, gtype in enumerate(geom_types):
-        if gtype != T.MESH and g not in batched:
+        if gtype == T.SDF:
+            best = merge(best, _sdf_hit_planar(o, d, times, geoms, g,
+                                               tuple(sdf_kinds[g]),
+                                               tangents))
+        elif gtype != T.MESH and g not in batched:
             best = merge(best, _primitive_hit_planar(o, d, times, geoms, g,
                                                      gtype, tangents))
     for g, gtype in enumerate(geom_types):
@@ -710,7 +810,7 @@ def _unpack_rgb8(p: torch.Tensor) -> V3:
 def _env_flat_index(textures: T.Textures, d: V3) -> torch.Tensor:
     """Flat equirect texel index [N] int32 of the nearest env fetch."""
     he, we = textures.env.shape[0], textures.env.shape[1]
-    u = 0.5 + torch.atan2(d.x, -d.z) / (2.0 * math.pi)
+    u = 0.5 + _atan2(d.x, -d.z) / (2.0 * math.pi)
     v = torch.acos(torch.clamp(d.y, -1.0, 1.0)) / math.pi
     xi = torch.clamp((u * we).to(torch.int32), 0, we - 1)
     yi = torch.clamp((v * he).to(torch.int32), 0, he - 1)
@@ -752,7 +852,7 @@ def _env_bilinear_indices(textures: T.Textures, d: V3):
     equirect fetch: longitude wraps, latitude clamps at the poles (the
     1e-7 inset keeps acos's derivative finite straight up and down)."""
     he, we = textures.env.shape[0], textures.env.shape[1]
-    u = 0.5 + torch.atan2(d.x, -d.z) / (2.0 * math.pi)
+    u = 0.5 + _atan2(d.x, -d.z) / (2.0 * math.pi)
     v = torch.acos(torch.clamp(d.y, -1.0 + 1e-7, 1.0 - 1e-7)) / math.pi
     xf = u * we - 0.5
     yf = v * he - 0.5
@@ -1004,7 +1104,7 @@ def _sky_radiance(ray_d: V3, sk: torch.Tensor) -> V3:
     zero = torch.zeros_like(up_t)
     sun = vec.normalize(V3(sk[7] + zero, sk[8] + zero, sk[9] + zero))
     sun_cos = _clip(vec.dot(ray_d, sun), 0.0, 1.0)
-    sun_lobe = torch.pow(sun_cos, _max(sk[13], 1.0))
+    sun_lobe = _pow(sun_cos, _max(sk[13], 1.0))
     return V3(*((sk[4 + c] + (sk[1 + c] - sk[4 + c]) * up_t
                  + sk[10 + c] * sun_lobe) * sk[0] for c in range(3)))
 
@@ -1065,10 +1165,10 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                  nee_env_c: float = 0.0, nee_q: float = 1.0,
                  bump: bool = False, nmap: bool = False,
                  bilinear: bool = False,
-                 bilinear_fast: bool = False) -> ShadeOutP:
+                 bilinear_fast: bool = False,
+                 dispersion: bool = False) -> ShadeOutP:
     """One scattering step over the wavefront; `uniforms` holds the four
-    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar` without
-    dispersion.
+    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar`.
 
     Albedo: the material colour, its atlas texel where the material is
     textured (nearest; `bilinear` four corners; with `bilinear_fast` the
@@ -1098,7 +1198,14 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     Detach convention: the lobe and Fresnel decisions and the diffuse
     direction are detached; the mirror, refraction and glossy directions
     keep their dependence on the materials (the training slice relies on
-    it)."""
+    it).
+
+    `dispersion` (static; some material has DISPERSION d > 0): a path that
+    takes the refractive lobe of such a material samples one RGB band ch
+    from the lobe draw, reused (u_lobe / p_refr is again uniform inside the
+    lobe) and detached, refracts with ior + d (ch - 1), and its throughput
+    keeps 3x that band alone: E[3 onehot(ch) L] = sum of L's bands, so white
+    light stays unbiased while caustics split by wavelength."""
     mat_id = hit.mat_id
     albedo, env_fused = _textured_albedo(
         hit, ray_d, textures, _mat_select(materials.color, mat_id),
@@ -1177,8 +1284,8 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     if glossy:
         # Phong cos^n lobe around the mirror axis (SPECEX > 0)
         spec_exp = _mat_select(materials.specular_exponent, mat_id)
-        cos_a = torch.pow(torch.clamp(uniforms[1], 1e-9, 1.0),
-                          1.0 / (spec_exp + 1.0))
+        cos_a = _pow(torch.clamp(uniforms[1], 1e-9, 1.0),
+                     1.0 / (spec_exp + 1.0))
         sin_a = torch.sqrt(_max(1.0 - cos_a * cos_a, 1e-20))
         phi_g = uniforms[2] * TWO_PI
         pick_gx = d_spec.x.abs() < SQRT_OF_ONE_THIRD
@@ -1195,6 +1302,19 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
         above = vec.dot(d_gloss, n) > 0.0
         d_gloss = vec.where(above, d_gloss, d_spec)
         d_spec = vec.where(spec_exp > 0.0, d_gloss, d_spec)
+
+    disp_scale = None
+    if dispersion:
+        disp = _mat_select(materials.dispersion, mat_id)
+        u_ch = _clip(u_lobe / _max(p_refr, 1e-9), 0.0, 1.0 - 1e-7).detach()
+        ch = torch.floor(u_ch * 3.0)
+        dispersing = take_refr & (disp > 0.0)
+        ior = torch.where(dispersing, ior + disp * (ch - 1.0), ior)
+        one = torch.ones_like(ior)
+        three, zero_c = torch.full_like(ior, 3.0), torch.zeros_like(ior)
+        disp_scale = V3(*(torch.where(
+            dispersing, torch.where(ch == c, three, zero_c), one)
+            for c in range(3)))
 
     outside = hit.outside
     safe_ior = _max(ior, 1e-6)
@@ -1236,7 +1356,7 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
         if glossy:
             cos_al = _clip(vec.dot(wl, d_mirror), 1e-9, 1.0)
             q_l = ((spec_exp + 1.0) * (0.5 / math.pi)
-                   * torch.pow(cos_al, spec_exp))
+                   * _pow(cos_al, spec_exp))
             q_l = torch.where((spec_exp > 0.0) & (cos_s > 0.0), q_l, zero)
             wg = torch.where(nee_ok,
                              q_l / (pdf_l + p_spec * q_l + 1e-30), zero)
@@ -1251,6 +1371,8 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     factor = vec.where(take_refr, spec_color * inv_pr,
                        vec.where(take_spec, spec_color * inv_ps,
                                  albedo * inv_pd))
+    if dispersion:
+        factor = factor * disp_scale
 
     scattering = alive & hit_ok & ~is_light
     new_throughput = vec.where(scattering, throughput * factor, throughput)
@@ -1273,7 +1395,7 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                               zero)
         if glossy:
             q_samp = ((spec_exp + 1.0) * (0.5 / math.pi)
-                      * torch.pow(_clip(cos_a, 1e-9, 1.0), spec_exp))
+                      * _pow(_clip(cos_a, 1e-9, 1.0), spec_exp))
             gloss = still_alive & take_spec & (spec_exp > 0.0) & above
             nee_pdf = torch.where(gloss, p_spec * q_samp, nee_pdf)
     return ShadeOutP(origin=new_origin, direction=new_dir,

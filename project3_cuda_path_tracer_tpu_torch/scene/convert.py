@@ -80,11 +80,13 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
                      resolution: tuple,
                      meshes: Optional[T.MeshBundle] = None,
                      packed_meshes: tuple = (),
-                     textures: Optional[dict] = None) -> T.Scene:
+                     textures: Optional[dict] = None,
+                     sdf_kinds: tuple = ()) -> T.Scene:
     """Build a port `Scene` from NumPy tables.
 
     `materials`/`geoms` map the JAX dataclass field names to arrays (a
-    missing `dispersion` is zeros); `camera` is the JAX `Camera.flat()` dict
+    missing `dispersion` is zeros; `sdf_params` is carried when present and
+    not None); `sdf_kinds` is the JAX Scene.sdf_kinds tuple; `camera` is the JAX `Camera.flat()` dict
     (position, view, up, right, pixel_length, aperture, focal_distance,
     shutter); `resolution` is (width, height), which `flat()` does not carry.
     `meshes` and `packed_meshes` are the port's (see the converters above);
@@ -98,6 +100,8 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
     ints = ("type", "material_id", "mesh_id")
     geom_t = {k: _tensor(geoms[k], np.int32 if k in ints else np.float32)
               for k in _GEOM_KEYS}
+    if geoms.get("sdf_params") is not None:
+        geom_t["sdf_params"] = _tensor(geoms["sdf_params"], np.float32)
 
     c = {k: np.asarray(v, np.float32) for k, v in camera.items()}
     w, h = resolution
@@ -114,6 +118,8 @@ def scene_from_numpy(materials: dict, geoms: dict, camera: dict,
                    materials=T.Materials(**mats), geoms=T.Geoms(**geom_t),
                    meshes=meshes or T.MeshBundle.empty(),
                    packed_meshes=tuple(packed_meshes),
+                   sdf_kinds=tuple(tuple(int(v) for v in k)
+                                   for k in sdf_kinds),
                    textures=(None if textures is None
                              else textures_from_numpy(textures)))
 

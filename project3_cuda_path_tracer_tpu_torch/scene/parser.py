@@ -7,8 +7,11 @@ src/scene.cpp):
                  APERTURE/FOCAL (thin lens), SHUTTER (motion blur)
                  TEXTURE <path>, CHECKER s r2 g2 b2, NORMALMAP <path.png>,
                  BUMP scale freq
-  OBJECT n    -> `cube` | `sphere` | `mesh <path.obj>`, `material k`,
-                 TRANS/ROTAT/SCALE, VELOC
+  OBJECT n    -> `cube` | `sphere` | `mesh <path.obj>` | `sdf <kind>`,
+                 `material k`, TRANS/ROTAT/SCALE, VELOC; an SDF's PARAMS
+                 (up to 20 numbers; a metaball's ball count follows from
+                 them) and its CSG sub-shapes `A`/`B` (`sphere cx cy cz r`
+                 or `box cx cy cz hx hy hz`)
   top level   -> ENVMAP <path.hdr|.png>, ENVSKY (13 numbers: zenith rgb,
                  horizon rgb, sun dir xyz, sun rgb, sun sharpness)
 IDs must be sequential; blocks end at a blank line. The tables are built in
@@ -17,8 +20,8 @@ tensors. Mesh, texture and env paths resolve relative to the scene file;
 each OBJ is loaded once (deduplicated by path), its BVH built
 (scene/bvh.py) and packed in the 8-wide layout of the traversal kernel
 (ops/bvh8.pack_all8). The images go into one vertical-strip atlas with
-their packed 32-bit planes (`_load_textures`). SDF objects raise
-NotImplementedError naming their slice (ROADMAP.md, Queue 1).
+their packed 32-bit planes (`_load_textures`). SDF objects fill
+Geoms.sdf_params and Scene.sdf_kinds (ops/sdf.py).
 """
 from __future__ import annotations
 
@@ -28,25 +31,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops import sdf as S
 from ..ops.bvh8 import pack_all8
 from ..utils import image as img_io
 from ..utils import math as m
 from . import types as T
 from .bvh import build_mesh_bundle
 
-# keyword -> the ROADMAP slice that ports it
-_UNPORTED = {"sdf": "slice E (SDF primitives)"}
-
 
 class SceneParseError(ValueError):
     pass
-
-
-def _unported(keyword: str, path: str):
-    return NotImplementedError(
-        f"{path}: {keyword!r} is not ported to the torch package yet "
-        f"(ROADMAP.md Queue 1, {_UNPORTED[keyword]}); render this scene with "
-        f"project3_cuda_path_tracer_tpu")
 
 
 def _is_blank(line: str) -> bool:
@@ -102,8 +96,6 @@ def load_scene(path: str) -> T.Scene:
             continue
         tok = line.split()
         kw = tok[0]
-        if kw in _UNPORTED:
-            raise _unported(kw, path)
         if kw == "MATERIAL":
             mid = int(tok[1])
             if mid != len(mats):
@@ -146,14 +138,13 @@ def load_scene(path: str) -> T.Scene:
                 raise SceneParseError(
                     f"OBJECT ID {gid} does not match expected {len(geoms)}")
             g = dict(type=None, mesh_path=None, material=0, trans=(0, 0, 0),
-                     rotat=(0, 0, 0), scale=(1, 1, 1), veloc=(0, 0, 0))
+                     rotat=(0, 0, 0), scale=(1, 1, 1), veloc=(0, 0, 0),
+                     sdf_kind=(-1, -1, -1), sdf_params=None)
             tline = cur.next()
             while _is_comment(tline):
                 tline = cur.next()
             trow = tline.split()
             tname = trow[0]
-            if tname in _UNPORTED:
-                raise _unported(tname, path)
             if tname == "sphere":
                 g["type"] = T.SPHERE
             elif tname == "cube":
@@ -161,6 +152,13 @@ def load_scene(path: str) -> T.Scene:
             elif tname == "mesh":
                 g["type"] = T.MESH
                 g["mesh_path"] = os.path.join(base, trow[1])
+            elif tname == "sdf":
+                if len(trow) < 2 or trow[1] not in S.KINDS:
+                    raise SceneParseError(
+                        f"sdf needs a kind in {sorted(S.KINDS)}")
+                g["type"] = T.SDF
+                g["sdf_kind"] = (S.KINDS[trow[1]], -1, -1)
+                g["sdf_params"] = [0.0] * S.PARAM_SLOTS
             else:
                 raise SceneParseError(f"unknown OBJECT type {tname!r}")
             for row in cur.block():
@@ -175,6 +173,24 @@ def load_scene(path: str) -> T.Scene:
                     g["scale"] = _vec3(row)
                 elif k == "VELOC":
                     g["veloc"] = _vec3(row)
+                elif k == "PARAMS" and g["type"] == T.SDF:
+                    vals = [float(v) for v in row[1:S.PARAM_SLOTS + 1]]
+                    g["sdf_params"][:len(vals)] = vals
+                    if g["sdf_kind"][0] == S.METABALL:
+                        # k, then (x y z r) a ball; the ball count is aux_a
+                        nballs = max(1, min((len(vals) - 1) // 4,
+                                            S.MAX_BALLS))
+                        g["sdf_kind"] = (S.METABALL, nballs, -1)
+                elif k in ("A", "B") and g["type"] == T.SDF:
+                    if row[1] not in S.SUB_SHAPES:
+                        raise SceneParseError("CSG sub-shape must be "
+                                              f"sphere|box, got {row[1]!r}")
+                    vals = [float(v) for v in row[2:10]]
+                    off = 0 if k == "A" else 8
+                    g["sdf_params"][off:off + len(vals)] = vals
+                    kd, a, b = g["sdf_kind"]
+                    sub = S.SUB_SHAPES[row[1]]
+                    g["sdf_kind"] = (kd, sub, b) if k == "A" else (kd, a, sub)
             geoms.append(g)
         elif kw == "CAMERA":
             res, fovy = (800, 800), 45.0
@@ -256,6 +272,11 @@ def load_scene(path: str) -> T.Scene:
         velocity=np.array([g["veloc"] for g in geoms],
                           np.float32).reshape(-1, 3),
         mesh_id=np.array(mesh_ids, np.int32))
+    has_sdf = any(g["type"] == T.SDF for g in geoms)
+    if has_sdf:
+        geom_tables["sdf_params"] = np.array(
+            [g["sdf_params"] or [0.0] * S.PARAM_SLOTS for g in geoms],
+            np.float32)
 
     meshes, packed = T.MeshBundle.empty(), ()
     if mesh_paths:
@@ -269,6 +290,7 @@ def load_scene(path: str) -> T.Scene:
         geoms=T.Geoms(**{k: torch.from_numpy(v)
                          for k, v in geom_tables.items()}),
         meshes=meshes, packed_meshes=packed,
+        sdf_kinds=(tuple(g["sdf_kind"] for g in geoms) if has_sdf else ()),
         textures=_load_textures(mats, envmap_path, envsky),
         source_path=os.path.abspath(path))
 

@@ -50,6 +50,9 @@ class Geoms:
     inverse_transpose: torch.Tensor  # [G,4,4]
     velocity: torch.Tensor           # [G,3]
     mesh_id: torch.Tensor            # [G] int32; -1 for primitives
+    # [G, ops.sdf.PARAM_SLOTS] float32 SDF shape parameters, zeros on the
+    # other geoms; None when the scene has no SDF geom
+    sdf_params: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -253,6 +256,19 @@ class RenderSettings:
     # pair planes, built at first use (render/integrator.build_trace_config)
     bilinear: bool = False
     bilinear_fast: bool = False
+    # The integrator features of slice E (render/integrator.py): material
+    # sort and compaction of the wavefront each bounce (--sort, --compact;
+    # the image is unchanged bit for bit), Russian roulette from the third
+    # bounce (--russian-roulette), the stratified sampler's implementation
+    # ("lattice" or "sobol", --sampler), the per-sample radiance clamp (0 =
+    # off, --clamp), and the cache of the depth-0 hits, valid without AA,
+    # depth of field and motion blur.
+    sort_materials: bool = False
+    compact: bool = False
+    russian_roulette: bool = False
+    strat_impl: str = "lattice"
+    clamp: float = 0.0
+    first_bounce_cache: bool = False
 
 
 @dataclass
@@ -269,6 +285,9 @@ class Scene:
     # (the parser's default, kernel K2) or ops/pallas_bvh.PackedMesh (the
     # binary tree, kernels K3/K4). The integrator dispatches on the type.
     packed_meshes: tuple = ()
+    # Per-geom SDF kind triples (kind, aux_a, aux_b) of ops/sdf.py,
+    # (-1, -1, -1) for the other geoms; () when the scene has no SDF geom.
+    sdf_kinds: tuple = ()
 
     def __post_init__(self):
         if self.textures is None:

@@ -4,8 +4,9 @@ K1 (csrc/megakernel.cu) and K2 (csrc/bvh8.cu) in both schedules, K2's
 any-hit mode on the shadow rays of a NEE iteration, K3 in both schedules
 and both node-row layouts and K4 (csrc/bvh_binary.cu), the probes P1/P2
 (csrc/gather.cu, csrc/extract_cost.cu) and P1 as the texture path's
-fetch (ops/texfetch.py), and a NEE iteration and a textured iteration on
-the card against the CPU. Every test here
+fetch (ops/texfetch.py), a NEE iteration and a textured iteration on
+the card against the CPU, and K2 on a sorted and compacted wavefront with
+the sorted render against the unsorted one (slice E). Every test here
 is `cuda`-marked and skips without a card. The file imports neither JAX
 nor the JAX package, so it runs where they are absent:
 
@@ -619,3 +620,73 @@ def test_textured_iteration_card_matches_cpu(name, flags):
             assert (P1.LAUNCHES > before) == (name == "textured_env")
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
     assert_lane_contract(imgs[0], imgs[1])
+
+
+def _torus_room(tmp_path, res: int, **settings):
+    """TORUS_NEE's room (the torus on a floor under a light) at res x res,
+    depth 4, stratified, with RenderSettings fields `settings`."""
+    (tmp_path / "torus.obj").write_text(open(TORUS).read())
+    path = tmp_path / "torus_room.txt"
+    path.write_text(TORUS_NEE)
+    scene = load_scene(str(path))
+    scene.camera.resolution = (res, res)
+    scene.camera.derive()
+    scene.settings.stratified = True
+    for k, v in settings.items():
+        setattr(scene.settings, k, v)
+    return scene
+
+
+@pytest.mark.cuda
+def test_k2_on_compacted_wavefront_matches_plain_on_card(tmp_path):
+    """One --sort --compact iteration of the torus room (128x128, depth 4)
+    on the card: the renderer's K2 launches are captured; from bounce 1 on
+    the wavefront is in bucket order (by the material of the last hit, then
+    the misses), so bounce 1's dead lanes (t_bound -1) lie in at most one
+    run a bucket; K2 equals traverse8_plain on each wavefront bit for bit,
+    pops included."""
+    _need_card()
+    scene = _torus_room(tmp_path, 128, sort_materials=True, compact=True)
+    r = Renderer(scene, device="cuda")
+    assert r.route == "wavefront" and r.cfg.compact
+    kernel, waves = P8.traverse8, []
+
+    def capture(qo, qd, packed, t_bound=None, any_hit=False, **kwargs):
+        waves.append((tuple(c.clone() for c in qo),
+                       tuple(c.clone() for c in qd), t_bound.clone()))
+        return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
+                      **kwargs)
+    before = P8.LAUNCHES
+    P8.traverse8 = capture
+    try:
+        r.step()
+    finally:
+        P8.traverse8 = kernel
+    torch.cuda.synchronize()
+    assert len(waves) == 4 and P8.LAUNCHES == before + 4
+    dead = ~(waves[1][2] > 0)
+    runs = int(dead[0]) + int((dead[1:] & ~dead[:-1]).sum())
+    assert 0 < int(dead.sum()) < dead.numel()
+    assert 1 <= runs <= scene.num_materials + 2
+    for qo, qd, tb in waves:
+        got = P8.traverse8(qo, qd, r.packed_meshes[0], t_bound=tb,
+                           return_pops=True)
+        want = P8.traverse8_plain(qo, qd, r.packed_meshes[0], t_bound=tb)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stratified", [True, False])
+def test_sorted_render_equals_unsorted_on_card(stratified, tmp_path):
+    """The torus room at 128x128 depth 4, 2 iterations on the card: the
+    --sort --compact image equals the identity order's bit for bit."""
+    _need_card()
+    imgs = []
+    for knobs in ({}, {"sort_materials": True, "compact": True}):
+        scene = _torus_room(tmp_path, 128, **knobs)
+        scene.settings.stratified = stratified
+        r = Renderer(scene, device="cuda")
+        imgs.append(r.render(2).clone())
+    assert float(imgs[0].mean()) > 0
+    assert torch.equal(imgs[0], imgs[1])

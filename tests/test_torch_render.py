@@ -97,16 +97,17 @@ def test_cuda_device_is_never_substituted():
 
 
 def test_renderer_refuses_unsupported_scene():
-    """A feature no ported stage covers (spectral dispersion) raises and
-    names its slice; the procedural sky, ported with slice D, now takes the
-    wavefront route, as the glossy lobe does (tests/test_torch_mesh.py)."""
+    """The features K1 lacks send a scene to the wavefront route: the
+    procedural sky (slice D), as the glossy lobe does
+    (tests/test_torch_mesh.py), and spectral dispersion (slice E, which
+    once raised here; tests/test_torch_dispersion.py renders it)."""
     scene = load_scene(os.path.join(SCENES, "cornell.txt"))
     scene.textures.sky[0] = 1.0
     assert Renderer(scene, device="cpu").route == "wavefront"
     scene = load_scene(os.path.join(SCENES, "cornell.txt"))
     scene.materials.dispersion[0] = 0.05
-    with pytest.raises(NotImplementedError, match="dispersion.*slice E"):
-        Renderer(scene, device="cpu")
+    r = Renderer(scene, device="cpu")
+    assert r.route == "wavefront" and r.cfg.dispersion
 
 
 def test_port_imports_without_jax():
@@ -150,8 +151,8 @@ def test_cli_end_to_end(tmp_path, capsys):
     assert rec["trace_depth"] == 2 and rec["output"] == str(png)
 
 
-@pytest.mark.parametrize("flag", ["--sort", "--sharded", "--denoise",
-                                  "--clamp=0.5"])
+@pytest.mark.parametrize("flag", ["--adaptive", "--sharded", "--denoise",
+                                  "--checkpoint-every=4"])
 def test_cli_unported_flag_exits_2(flag, capsys):
     rc = cli.main([os.path.join(SCENES, "cornell.txt"), flag])
     assert rc == 2

@@ -2,8 +2,7 @@
 
 The port's parser (project3_cuda_path_tracer_tpu_torch/scene/parser.py) must
 produce the JAX parser's tables from the same file, and `scene_from_numpy`
-must carry the JAX tables over unchanged. Scenes of slices not ported yet
-(SDFs) must raise NotImplementedError.
+must carry the JAX tables over unchanged.
 """
 import os
 
@@ -92,12 +91,14 @@ def test_scene_from_numpy_matches_parser(name):
     ("textured_env_proc", "slice D"), ("sdf", "slice E"),
     ("textured_env", "slice D")])
 def test_unported_scenes_raise(name, slice_name):
-    """Scenes of a slice not ported yet raise, naming it (sdf, slice E);
-    slice D's textured scenes are ported and load, with the JAX parser's
-    tables (tests/test_torch_textures.py holds every Textures field)."""
-    if slice_name == "slice D":
-        port, js = load_scene(_path(name)), jax_load_scene(_path(name))
-        _assert_scene_matches(port, js)
-        return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        load_scene(_path(name))
+    """The scenes of the slices that once raised here load with the JAX
+    parser's tables: slice D's textured scenes (tests/test_torch_textures.py
+    holds every Textures field) and slice E's sdf.txt, its SDF kinds and
+    parameters too (tests/test_torch_sdf.py renders it)."""
+    port, js = load_scene(_path(name)), jax_load_scene(_path(name))
+    _assert_scene_matches(port, js)
+    assert port.sdf_kinds == tuple(js.sdf_kinds)
+    if slice_name == "slice E":
+        assert len(port.sdf_kinds) == port.num_geoms
+        np.testing.assert_array_equal(port.geoms.sdf_params.numpy(),
+                                      np.asarray(js.geoms.sdf_params))
