@@ -13,13 +13,10 @@ import argparse
 import os
 import sys
 
-_SLICE_F = "slice F (render services)"
 _SLICE_H = "slice H (the app)"
 # JAX CLI flag -> why the port does not take it yet
 UNPORTED_FLAGS = {
-    "--adaptive": _SLICE_F, "--adaptive-epoch": _SLICE_F,
-    "--denoise": _SLICE_F, "--checkpoint-every": _SLICE_F,
-    "--resume": _SLICE_F, "--sharded": "slice G (sharding)",
+    "--sharded": "slice G (sharding)",
     "--preview": _SLICE_H, "--snapshot-every": _SLICE_H,
     "--timestamp-name": _SLICE_H, "--debug-nans": _SLICE_H,
     "--no-bake": "no slice: XLA constant baking has no counterpart (the "
@@ -87,6 +84,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aces", action="store_true",
                    help="ACES filmic tonemap on the saved PNG "
                         "(Narkowicz 2015 fit; .hdr output stays linear)")
+    p.add_argument("--adaptive", action="store_true",
+                   help="adaptive sampling: re-allocate the per-iteration "
+                        "path budget to high-variance pixels every "
+                        "--adaptive-epoch iterations (host planner; "
+                        "unbiased per-pixel means)")
+    p.add_argument("--adaptive-epoch", type=int, default=32,
+                   help="iterations between adaptive re-plans (default 32; "
+                        "the first epoch is a uniform warm-up)")
+    p.add_argument("--denoise", action="store_true",
+                   help="edge-avoiding a-trous wavelet denoise at save "
+                        "time (Dammertz et al. 2010)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="write a resume checkpoint <out>.ckpt.npz every N "
+                        "iterations")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from <out>.ckpt.npz if present")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="emit a JSON-line metrics record to stderr")
@@ -108,12 +121,19 @@ def main(argv=None) -> int:
             return 2
     if rest:
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.restir and (args.sort or args.compact):
+    if args.adaptive and (args.sort or args.compact):
+        print("--adaptive is incompatible with --megakernel/--sort/"
+              "--compact", file=sys.stderr)
+        return 2
+    if args.restir and (args.sort or args.compact or args.adaptive):
         print("--restir is incompatible with --megakernel/--sort/"
               "--compact/--adaptive/--sharded (identity single-device "
               "path order required)", file=sys.stderr)
         return 2
 
+    import torch
+
+    from ..render import checkpoint as ckpt
     from ..render.integrator import Renderer
     from ..scene.parser import load_scene
     from ..utils.device import synchronize
@@ -139,21 +159,47 @@ def main(argv=None) -> int:
     st.nee_ris = args.nee_ris
     st.restir = args.restir
     st.restir_cap = args.restir_cap
+    st.adaptive = args.adaptive
+    st.adaptive_epoch = args.adaptive_epoch
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, args.out or st.image_name)
 
     renderer = Renderer(scene, device=args.device)
+    start_iter = 0
+    if args.resume:
+        found = ckpt.find_checkpoint(base)
+        if found:
+            accum, start_iter, seed = ckpt.load_checkpoint(found, args.scene)
+            renderer.accum.copy_(torch.from_numpy(accum))
+            renderer.iteration = start_iter
+            renderer.seed = seed
+            renderer.restore_extras(ckpt.load_extras(found))
+            print(f"resumed from {found} at iteration {start_iter}",
+                  file=sys.stderr)
     w, h = scene.camera.resolution
     metrics = RenderMetrics(width=w, height=h, trace_depth=st.trace_depth)
     print(f"rendering {args.scene}: {w}x{h}, {st.iterations} iterations, "
           f"depth {st.trace_depth}, device={renderer.device}, "
           f"route={renderer.route}", file=sys.stderr)
     metrics.start()
-    renderer.step_many(st.iterations)
+    done = start_iter
+    while done < st.iterations:
+        # advance to the next checkpoint boundary
+        nxt = st.iterations
+        if args.checkpoint_every:
+            nxt = min(nxt, (done // args.checkpoint_every + 1)
+                      * args.checkpoint_every)
+        renderer.step_many(nxt - done)
+        done = nxt
+        if args.checkpoint_every and done % args.checkpoint_every == 0:
+            ckpt.save_checkpoint(base + ".ckpt.npz",
+                                 renderer.accum.cpu().numpy(), done,
+                                 renderer.seed, args.scene,
+                                 extras=renderer.checkpoint_extras())
     synchronize(renderer.device)
-    metrics.stop(st.iterations)
-    out = renderer.save(base, hdr=args.hdr, gamma=args.gamma,
-                        aces=args.aces)
+    metrics.stop(max(st.iterations - start_iter, 0))
+    out = renderer.save(base, hdr=args.hdr, denoise=args.denoise,
+                        gamma=args.gamma, aces=args.aces)
     print(f"saved {out}", file=sys.stderr)
     if args.metrics:
         metrics.emit(final=True, output=out, device=str(renderer.device))

@@ -150,19 +150,34 @@ def generate_rays_planar(cam: dict, width: int, height: int,
                          antialias: bool = True, dof: bool = True,
                          motion: bool = True, stratified: bool = False,
                          iteration=None, cam_u: Optional[torch.Tensor] = None,
-                         strat_impl: str = "lattice"):
+                         strat_impl: str = "lattice",
+                         pixel_override: Optional[torch.Tensor] = None,
+                         strat_index: Optional[torch.Tensor] = None):
     """Primary rays as (origin V3, dir V3, time [N], pixel_index [N]), path i
     at pixel (i % W, i // W).
 
     Camera draws (AA jitter x/y, lens disk r/phi, shutter time) come from,
     in this order of precedence: `cam_u` [5, N] injected uniforms in that
     row order; the stratified sampler `strat_impl` when `stratified` and
-    `iteration` is given; else `torch.rand` on `generator`."""
+    `iteration` is given; else `torch.rand` on `generator`.
+
+    Adaptive sampling (render/adaptive.py): under `pixel_override` ([N]
+    pixel ids, several paths may share one) path i shoots at pixel
+    pixel_override[i], and N is the override's length. `strat_index` ([N],
+    the surrogate pixel + occurrence * W*H, below 2^31) then keys the
+    stratified draws, so that co-located paths draw distinct samples."""
     dev = cam["position"].device
-    n = width * height
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    xi, yi = idx % width, idx // width
+    if pixel_override is not None:
+        pix = pixel_override.to(device=dev, dtype=torch.int64)
+        n = pix.shape[0]
+        xi, yi = pix % width, pix // width
+    else:
+        n = width * height
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        xi, yi = idx % width, idx // width
     pixel_index = xi + yi * width
+    samp_key = pixel_index if strat_index is None else strat_index.to(
+        device=dev, dtype=torch.int64)
     x = xi.to(F32)
     y = yi.to(F32)
     strat = stratified and iteration is not None
@@ -171,7 +186,7 @@ def generate_rays_planar(cam: dict, width: int, height: int,
         if cam_u is not None:
             return tuple(cam_u[row + i] for i in range(num))
         if strat:
-            return stratified_planes(iteration, CAMERA_SLOT, pixel_index,
+            return stratified_planes(iteration, CAMERA_SLOT, samp_key,
                                      num, salt, impl=strat_impl)
         u = torch.rand((num * n,), generator=generator, dtype=F32, device=dev)
         return tuple(u[i * n:(i + 1) * n] for i in range(num))

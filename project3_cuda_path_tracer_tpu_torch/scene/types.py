@@ -269,6 +269,11 @@ class RenderSettings:
     strat_impl: str = "lattice"
     clamp: float = 0.0
     first_bounce_cache: bool = False
+    # Adaptive sampling (render/adaptive.py, --adaptive): the path budget
+    # is re-allocated to high-variance pixels every `adaptive_epoch`
+    # iterations (--adaptive-epoch); the first epoch is a uniform warm-up.
+    adaptive: bool = False
+    adaptive_epoch: int = 32
 
 
 @dataclass

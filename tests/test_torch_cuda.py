@@ -5,8 +5,11 @@ any-hit mode on the shadow rays of a NEE iteration, K3 in both schedules
 and both node-row layouts and K4 (csrc/bvh_binary.cu), the probes P1/P2
 (csrc/gather.cu, csrc/extract_cost.cu) and P1 as the texture path's
 fetch (ops/texfetch.py), a NEE iteration and a textured iteration on
-the card against the CPU, and K2 on a sorted and compacted wavefront with
-the sorted render against the unsorted one (slice E). Every test here
+the card against the CPU, K2 on a sorted and compacted wavefront with
+the sorted render against the unsorted one (slice E), and the render
+services (slice F): K2 on an adaptive wavefront, an adaptive iteration
+against the CPU, and resumed renders (adaptive, K1, ReSTIR) against
+uninterrupted ones. Every test here
 is `cuda`-marked and skips without a card. The file imports neither JAX
 nor the JAX package, so it runs where they are absent:
 
@@ -690,3 +693,115 @@ def test_sorted_render_equals_unsorted_on_card(stratified, tmp_path):
         imgs.append(r.render(2).clone())
     assert float(imgs[0].mean()) > 0
     assert torch.equal(imgs[0], imgs[1])
+
+
+def _adaptive(scene, epoch: int):
+    scene.settings.adaptive = True
+    scene.settings.adaptive_epoch = epoch
+    scene.settings.stratified = True
+    return scene
+
+
+@pytest.mark.cuda
+def test_k2_on_adaptive_wavefront_matches_plain_on_card(tmp_path):
+    """The torus room at 128x128 depth 4 under --adaptive --adaptive-epoch
+    4: after the replan at iteration 8 (the first whose counts spread) the
+    mapping repeats pixels, each pixel's paths contiguous; the iteration's
+    4 K2 launches are captured and K2 equals traverse8_plain on each of
+    those wavefronts bit for bit, pops included."""
+    _need_card()
+    r = Renderer(_adaptive(_torus_room(tmp_path, 128), 4), device="cuda")
+    assert r.route == "wavefront"
+    r.render(8)
+    kernel, waves = P8.traverse8, []
+
+    def capture(qo, qd, packed, t_bound=None, any_hit=False, **kwargs):
+        waves.append((tuple(c.clone() for c in qo),
+                      tuple(c.clone() for c in qd), t_bound.clone()))
+        return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
+                      **kwargs)
+    P8.traverse8 = capture
+    try:
+        r.step()
+    finally:
+        P8.traverse8 = kernel
+    torch.cuda.synchronize()
+    pix, _, count = r._plan
+    assert int(count.max()) > 1 and bool((pix[1:] >= pix[:-1]).all())
+    assert r.count.sum() == 9 * 128 * 128 and r.count.std() > 0
+    assert len(waves) == 4
+    for qo, qd, tb in waves:
+        got = P8.traverse8(qo, qd, r.packed_meshes[0], t_bound=tb,
+                           return_pops=True)
+        want = P8.traverse8_plain(qo, qd, r.packed_meshes[0], t_bound=tb)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_adaptive_iteration_card_matches_cpu():
+    """One stratified adaptive iteration of cornell at 64x64 depth 8 under a
+    fixed non-uniform plan: the card against the CPU under the lane
+    contract."""
+    _need_card()
+    from project3_cuda_path_tracer_tpu_torch.render import adaptive as A
+    plan = A.plan_from_err(np.random.default_rng(5).gamma(
+        0.5, 1.0, (64, 64)))
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        r = Renderer(_adaptive(_cornell(64), 32), device=dev)
+        r._set_plan(plan)
+        r.step()
+        imgs.append(r.accum.reshape(-1, 3).T.cpu().numpy())
+        assert r.route == "wavefront"
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
+    assert_lane_contract(imgs[0], imgs[1])
+
+
+def _split(make, total, split):
+    whole = make()
+    whole.render(total)
+    first = make()
+    first.render(split)
+    second = make()
+    second.accum.copy_(first.accum)
+    second.iteration = first.iteration
+    second.restore_extras(first.checkpoint_extras())
+    second.render(total - split)
+    torch.cuda.synchronize()
+    return whole, second
+
+
+@pytest.mark.cuda
+def test_adaptive_resume_on_card():
+    """cornell 64x64 depth 4 --adaptive --adaptive-epoch 4: 12 iterations
+    against 6 (mid-epoch), the extras, then 6 more: counts exactly, sums to
+    2e-5 (the scatter sums a pixel's paths in a fixed order, so they agree
+    bit for bit as well)."""
+    _need_card()
+    whole, resumed = _split(
+        lambda: Renderer(_adaptive(_cornell(64), 4), device="cuda"), 12, 6)
+    assert (whole.count == resumed.count).all() and whole.count.std() > 0
+    for a, b in ((whole.accum, resumed.accum),
+                 (whole.accum2, resumed.accum2)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    assert torch.equal(whole.accum, resumed.accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", [{}, {"restir": 4}])
+def test_resume_is_bitwise_on_card(settings):
+    """A uniform render (K1) and a ReSTIR render (the wavefront, its
+    reservoir through the extras) resumed at iteration 3 of 6 equal the
+    uninterrupted render bit for bit."""
+    _need_card()
+
+    def make():
+        scene = _cornell(64)
+        for k, v in settings.items():
+            setattr(scene.settings, k, v)
+        return Renderer(scene, device="cuda")
+    whole, resumed = _split(make, 6, 3)
+    assert whole.route == ("wavefront" if settings else "megakernel")
+    assert torch.equal(whole.accum, resumed.accum)

@@ -151,12 +151,24 @@ def test_cli_end_to_end(tmp_path, capsys):
     assert rec["trace_depth"] == 2 and rec["output"] == str(png)
 
 
-@pytest.mark.parametrize("flag", ["--adaptive", "--sharded", "--denoise",
-                                  "--checkpoint-every=4"])
+@pytest.mark.parametrize("flag", ["--sharded", "--snapshot-every=4",
+                                  "--timestamp-name", "--debug-nans"])
 def test_cli_unported_flag_exits_2(flag, capsys):
     rc = cli.main([os.path.join(SCENES, "cornell.txt"), flag])
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [("--adaptive", "--sort"),
+                                   ("--adaptive", "--compact"),
+                                   ("--adaptive", "--restir", "8")])
+def test_cli_refuses_adaptive_combinations(flags, capsys):
+    """The JAX CLI's refusals: adaptive with sort or compaction, ReSTIR
+    with adaptive (exit 2 before any render)."""
+    rc = cli.main([os.path.join(SCENES, "cornell.txt"), "--device", "cpu",
+                   *flags])
+    assert rc == 2
+    assert "incompatible" in capsys.readouterr().err
 
 
 def test_cli_unknown_flag_exits_2():
