@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--outdir DIR]
 
+(`--shard-worker INIT RANK WORLD OUT` runs one rank of the two-rank phase;
+the script starts those processes itself.)
+
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once) and drives these paths:
@@ -78,6 +81,22 @@ once) and drives these paths:
     --checkpoint-every and --resume through the CLI (uniform bit for bit,
     --adaptive resumed mid-epoch with exact counts and within 2e-5,
     lights.txt --restir 8 within 2e-5);
+  - the train step through every scene: textured_env at its own 2048x2048
+    depth 8 (each bounce checkpointed, the JAX remat rule; 16 K2 and 16 P1
+    launches a step, K2 and P1 held bit for bit against their plain
+    versions on the step's own bounce-0/1 inputs), sdf.txt and
+    dispersion.txt at 800x800 depth 8, each also under the other memory
+    schedule, with ms and peak memory a step; the card against the CPU
+    at 64x64 depth 8 on all three;
+  - sharding (slice G): mesh.txt 1024x1024 depth 8 through ShardedRenderer
+    in a world of one over NCCL against the single-process render (1e-5),
+    ms an iteration in turns, the sharded train step's gradients; two
+    ranks on the one card over gloo with CUDA tensors (this script again,
+    `--shard-worker`), their gathered cornell image and summed gradients
+    against one process;
+  - the app (slice H): the HTTP preview on an ephemeral port over cornell
+    800x800 depth 8, POST /orbit, then four K1 launches whose frame equals
+    a fresh Renderer's at the new camera bit for bit;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -1927,8 +1946,9 @@ def k3_bounces(gpu: str, pb, bounces: list) -> None:
 def mesh_train(scene) -> None:
     """The train step on mesh.txt at 32x32, depth 3: InverseRenderer turns
     the differentiable recompute on, so each bounce runs K2 for the winning
-    triangle and then Moller-Trumbore in torch ops. Counts at 0 before,
-    read after: K2 ran, K1 did not.
+    triangle and then Moller-Trumbore in torch ops, and checkpoints each
+    bounce (remat), so a differentiated bounce runs K2 again in the
+    backward. Counts at 0 before, read after: K2 ran, K1 did not.
 
     The target is a flat grey, so the residual is non-zero on every pixel.
     The blob covers ~5% of the view, and a path that leaves it reaches the
@@ -1968,41 +1988,45 @@ def mesh_train(scene) -> None:
                         losses=losses, k2_launches=k2, k1_launches=k1,
                         grads_finite=finite,
                         mesh_albedo_grad_max=mesh_albedo)))
-    # a seed render, two steps and four gradients: 7 renders x 3 bounces
-    if not (ir.cfg.differentiable_mesh and k2 == 7 * 3 and k1 == 0):
+    # a seed render (3 bounces), then two steps and four gradients: six
+    # differentiated renders whose 3 bounces each walk twice (remat, the
+    # rule on mesh scenes: once forward, once in the backward's recompute)
+    want = 3 + 6 * 3 * (2 if ir.cfg.remat else 1)
+    if not (ir.cfg.differentiable_mesh and ir.cfg.remat and k2 == want
+            and k1 == 0):
         raise AssertionError(f"mesh train: K2 launched {k2} times (want "
-                             f"21), K1 {k1}")
+                             f"{want}), K1 {k1}")
     if not (finite and np.isfinite(losses).all() and mesh_albedo > 0):
         raise AssertionError("mesh train: gradients not finite and non-zero")
 
 
-def train_phases(gpu: str, target: torch.Tensor) -> None:
-    """The train step (models/inverse.py) on the card. `target` is the
-    main path's cornell 800x800 image (per-iteration mean)."""
+def grads_card_vs_cpu(scene, tag: str, cfg, nonzero_leaf=None) -> dict:
+    """The history loss's gradients on the card against the CPU's, on
+    `scene` under `cfg` (stratified draws: the same trace on both
+    devices), iteration 3. As in tests/test_torch_inverse.py, lanes that
+    diverge at a decision threshold (transcendentals differ by ulps between
+    the two devices) are found from the images, at most FRAC of them, and
+    get no weight; the rest agree to rtol 1e-3 (the backward of the
+    material gather sums its lanes in another order on the card). The
+    textures are fused and the meshes packed as the InverseRenderer holds
+    them. The gradient of leaf `nonzero_leaf` (of any leaf, if None) must
+    be non-zero."""
     from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch
     from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
-
-    # ---- 9a. gradients, card against CPU ----------------------------------
-    # 64x64, depth 8, stratified draws: the same trace on both devices. As
-    # in tests/test_torch_inverse.py, lanes that diverge at a decision
-    # threshold (transcendentals differ by ulps between the two devices)
-    # are found from the images, at most FRAC of them, and get no weight;
-    # the rest agree to rtol 1e-3 (the backward of the material gather
-    # sums its lanes in another order on the card).
-    scene = sized(SCENE, 64, 8)
-    scene.settings.stratified = True
-    cfg = PI.build_trace_config(scene)
+    w, h = scene.camera.resolution
     rng = np.random.default_rng(0)
-    tgt = rng.random((64, 64, 3), dtype=np.float32) * 0.5
-    resid = rng.random((64, 64, 3), dtype=np.float32)
+    tgt = rng.random((h, w, 3), dtype=np.float32) * 0.5
+    resid = rng.random((h, w, 3), dtype=np.float32)
 
     def grads(dev, res):
         params = PInv.params_from_scene(scene, dev)
         loss, img = PInv.history_residual_grad_loss(
-            params, PI.to_device(scene.geoms, dev), None,
-            PI.to_device(scene.textures, dev), None, cfg,
+            params, PI.to_device(scene.geoms, dev),
+            PI.to_device(scene.meshes, dev),
+            texfetch.fuse(PI.to_device(scene.textures, dev)), None, cfg,
             torch.from_numpy(tgt).to(dev), torch.from_numpy(res).to(dev),
+            tuple(PI.to_device(p, dev) for p in scene.packed_meshes),
             iteration=3)
         leaves = PInv.param_leaves(params)
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -2018,23 +2042,40 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
     _, loss_g, g_g = grads("cuda", resid)
     errs = [float(((a - b).abs() / (b.abs() + 1e-7)).max())
             for a, b in zip(g_g, g_c)]
-    rec = dict(check="train grads card vs cpu 64x64 d8", lanes=64 * 64,
-               diverged=int(diverged.sum()), loss_card=loss_g,
-               loss_cpu=loss_c, max_rel_err=max(errs), rtol=1e-3)
+    rec = dict(check=tag, lanes=w * h, diverged=int(diverged.sum()),
+               loss_card=loss_g, loss_cpu=loss_c, max_rel_err=max(errs),
+               rtol=1e-3)
     log(json.dumps(rec))
     if diverged.mean() > FRAC:
-        raise AssertionError(f"train grads: {diverged.sum()} lanes diverge")
+        raise AssertionError(f"{tag}: {diverged.sum()} lanes diverge")
     for a, b in zip(g_g, g_c):
         if not torch.allclose(a, b, rtol=1e-3, atol=1e-7):
-            raise AssertionError(f"train grads differ: {rec}")
-    if float(g_c[0].abs().max()) <= 0:
-        raise AssertionError("train grads: the albedo gradient is zero")
+            raise AssertionError(f"{tag}: gradients differ: {rec}")
+    live = g_c if nonzero_leaf is None else [g_c[nonzero_leaf]]
+    if max(float(g.abs().max()) for g in live) <= 0:
+        raise AssertionError(f"{tag}: the gradient is zero")
+    return rec
+
+
+def train_phases(gpu: str, target: torch.Tensor) -> None:
+    """The train step (models/inverse.py) on the card. `target` is the
+    main path's cornell 800x800 image (per-iteration mean)."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+
+    # ---- 9a. gradients, card against CPU ----------------------------------
+    scene = sized(SCENE, 64, 8)
+    scene.settings.stratified = True
+    grads_card_vs_cpu(scene, "train grads card vs cpu 64x64 d8",
+                      PI.build_trace_config(scene), nonzero_leaf=0)
 
     # ---- 9b. the history step at full width -------------------------------
     # cornell 800x800, depth 8, fitting the white albedo from 0.5 back to
-    # the main path's image: a seed render, 2 warm-up steps, 10 timed steps
-    # (CUDA events, no host sync inside), one step under torch.profiler,
-    # then 3 two-render steps.
+    # the main path's image: a seed render, 2 warm-up steps, TIMED_STEPS
+    # timed steps (CUDA events, no host sync inside), one step under
+    # torch.profiler, then 3 two-render steps.
+    TIMED_STEPS = 5
     bad = sized(SCENE, 800, 8)
     bad.materials.color[1] = 0.5
     mk.LAUNCHES = 0
@@ -2052,15 +2093,15 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
     losses = []
     t0 = time.perf_counter()
     start.record()
-    for i in range(10):
+    for i in range(TIMED_STEPS):
         p, st, hist, loss = step(p, st, hist,
                                  PInv.step_generator(5, i, "cuda"),
                                  ir.target)
         losses.append(loss)
     stop.record()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
-    ms = start.elapsed_time(stop) / 10
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = start.elapsed_time(stop) / TIMED_STEPS
     peak = torch.cuda.max_memory_allocated()
     prof = profile_one(lambda: step(p, st, hist,
                                     PInv.step_generator(6, 0, "cuda"),
@@ -3111,11 +3152,412 @@ def services_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# Slices G and H and the train step through every scene
+# ---------------------------------------------------------------------------
+
+GB = 1e9
+
+
+def train_step_run(name: str, gpu: str, remat=None, steps: int = 1,
+                   capture: bool = False) -> dict:
+    """scenes/<name>.txt at its own size through InverseRenderer's history
+    step (`remat` None: the rule of `models.inverse.train_config`): the
+    history seeded by one render, then, with every count set to 0 and the
+    peak memory reset, `steps` steps timed by CUDA events (the first one's
+    K2 and P1 launches counted; with `capture`, its K2 rays and texel
+    fetches kept). A step that runs out of memory is reported as not
+    fitting (a measurement of a schedule the rule leaves out, not a
+    check)."""
+    import gc
+    from project3_cuda_path_tracer_tpu_torch import load_scene
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch
+    scene = load_scene(os.path.join(ROOT, "scenes", name + ".txt"))
+    w, h = scene.camera.resolution
+    every = lambda *a, **k: True  # noqa: E731
+    ir = PInv.InverseRenderer(scene, np.full((h, w, 3), 0.3, np.float32),
+                              device="cuda", remat=remat)
+    cfg = ir.cfg
+    fetches = waves = []
+    try:
+        ir.hist = ir._seed_hist(ir.params, ir._generator())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with contextlib.ExitStack() as stack:
+            if capture:
+                # the forward's bounce 0 and 1 (cloned: kept out of the
+                # peak's baseline by their small count)
+                fetches = stack.enter_context(capturing(
+                    texfetch, "take_u32", every))
+                waves = stack.enter_context(capturing(P8, "traverse8",
+                                                      every))
+            losses = [ir.step()]
+        counts = read_counts()
+        losses += [ir.step() for _ in range(steps - 1)]
+        stop.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rec = dict(metric="train_step_ms", scene=f"scenes/{name}.txt",
+                   value=start.elapsed_time(stop) / steps,
+                   host_wall_ms=(time.perf_counter() - t0) * 1e3 / steps,
+                   steps=steps,
+                   config=f"{name}.txt {w}x{h} depth {cfg.trace_depth}, "
+                          f"history step, remat {cfg.remat}",
+                   remat=cfg.remat, fits=True, peak_memory_bytes=peak,
+                   peak_gb=peak / GB, k2_launches_per_step=counts["k2"],
+                   p1_launches_per_step=counts["p1"], counts=counts,
+                   losses=losses, gpu=gpu)
+    except torch.cuda.OutOfMemoryError as e:
+        rec = dict(metric="train_step_ms", scene=f"scenes/{name}.txt",
+                   value=None, config=f"{name}.txt {w}x{h} depth "
+                   f"{cfg.trace_depth}, history step, remat {cfg.remat}",
+                   remat=cfg.remat, fits=False,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   error=str(e)[:160], gpu=gpu)
+        fetches = waves = []
+    log(json.dumps(rec))
+    packed = ir.packed_meshes[0] if ir.packed_meshes else None
+    del ir
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec["fits"] and not np.isfinite(rec["losses"]).all():
+        raise AssertionError(f"{name} train step: non-finite loss {rec}")
+    return dict(rec=rec, fetches=fetches, waves=waves, packed=packed)
+
+
+def train_textured_phases(gpu: str) -> dict:
+    """The train step through textured, SDF and dispersive scenes:
+    textured_env at its own 2048x2048 depth 8 (remat by the rule: the torus
+    is a mesh), sdf.txt (remat by the rule: SDF geoms) and dispersion.txt
+    (no remat) at 800x800 depth 8, each also under the other schedule, one
+    step each; K2 and P1 held bit for
+    bit against their plain versions on the textured step's own bounce-0
+    and bounce-1 inputs; the card against the CPU at 64x64 depth 8.
+    Returns the launches for the `kernels` line."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    recs = {}
+    tex = train_step_run("textured_env", gpu, capture=True)
+    r = tex["rec"]
+    # remat: each bounce's K2 walk and fused fetch run again in the backward
+    depth = 8
+    if not (r["fits"] and r["remat"] and r["counts"]["k2"] == 2 * depth
+            and r["counts"]["p1"] == 2 * depth and r["counts"]["k1"] == 0
+            and len(tex["fetches"]) == len(tex["waves"]) == 2):
+        raise AssertionError(f"textured train step: {r}")
+    recs["textured_env"] = r
+    # the texel fetches of the forward pass's bounces 0 and 1 (the first
+    # two; the recompute repeats them), and the torus's K2 rays
+    p1 = p1_on_path(gpu, tex["fetches"][:2])
+    k2 = k2_torus(gpu, tex["packed"], tex["waves"][:2], any_hit=False)
+    del tex
+    recs["textured_env_no_remat"] = train_step_run(
+        "textured_env", gpu, remat=False)["rec"]
+    # sdf.txt takes remat by the rule (the eager march's saved planes);
+    # dispersion.txt does not
+    for name, rule_remat in (("sdf", True), ("dispersion", False)):
+        rule = train_step_run(name, gpu)["rec"]
+        if not (rule["fits"] and rule["remat"] == rule_remat
+                and not any(rule["counts"].values())):
+            raise AssertionError(f"{name} train step: {rule}")
+        recs[name] = rule
+        recs[f"{name}_remat_{not rule_remat}"] = train_step_run(
+            name, gpu, remat=not rule_remat)["rec"]
+    for name in ("textured_env", "sdf", "dispersion"):
+        small = sized(os.path.join(ROOT, "scenes", name + ".txt"), 64, 8)
+        small.settings.stratified = True
+        cfg = dataclasses.replace(PInv.train_config(small), stratified=True)
+        grads_card_vs_cpu(small, f"train grads card vs cpu {name} 64x64 d8",
+                          cfg)
+    log(json.dumps(dict(metric="train_textured_summary", gpu=gpu, **{
+        k: dict(ms=v["value"], peak_gb=v.get("peak_gb"), fits=v["fits"],
+                remat=v["remat"], k2=v.get("k2_launches_per_step"),
+                p1=v.get("p1_launches_per_step"))
+        for k, v in recs.items()})))
+    return dict(k2_launches=r["counts"]["k2"], p1_launches=r["counts"]["p1"],
+                p1=p1, k2=k2)
+
+
+SHARD_ITERS = 4
+
+
+def shard_worker(init: str, rank: int, world: int, out: str) -> int:
+    """One rank of the 2-rank gloo run (`chip_smoke.py --shard-worker`):
+    cornell 800x800 depth 8, stratified, through ShardedRenderer on card 0
+    with CUDA tensors over gloo, SHARD_ITERS iterations; then the sharded
+    history loss's gradients at 64x64 depth 8. Rank 0 writes the gathered
+    image and the summed gradients to `out`."""
+    sys.path.insert(0, ROOT)
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.parallel import sharding
+    os.environ["LOCAL_RANK"] = "0"
+    sharding.init_distributed("gloo", f"file://{init}", world, rank)
+    try:
+        scene = sized(SCENE, 800, 8)
+        scene.settings.stratified = True
+        r = sharding.ShardedRenderer(scene, device="cuda")
+        r.render(SHARD_ITERS)
+        img = r.image()
+        small = sized(SCENE, 64, 8)
+        loss, grads = shard_train_grads(small, sharding, PInv)
+    finally:
+        sharding.shutdown()
+    if rank == 0:
+        np.savez(out, image=img, loss=loss.cpu().numpy(),
+                 **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)
+                    if g is not None})
+    return 0
+
+
+def shard_train_grads(scene, sharding, PInv):
+    """The sharded history loss's all-reduced (loss, gradients) on `scene`,
+    pseudo-random draws from step_generator(4, 0), target 0.3, residual 1."""
+    w, h = scene.camera.resolution
+    dev = torch.device("cuda")
+    cfg, _ = sharding.make_train_step_sharded(scene, dev)
+    tables, packed, meshes = sharding.shard_scene(scene, dev)
+    lo, hi = sharding.row_block(h, sharding.dist.get_world_size(),
+                                sharding.dist.get_rank())
+    params = PInv.params_from_scene(scene, dev)
+    tgt = torch.full((hi - lo, w, 3), 0.3, device=dev)
+    res = torch.ones((hi - lo, w, 3), device=dev)
+    loss, _ = sharding.history_loss_sharded(
+        params, tables, cfg, tgt, res, packed, meshes,
+        PInv.step_generator(4, 0, dev))
+    return sharding.all_reduce_grads(loss, PInv.param_leaves(params))
+
+
+def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
+    """Slice G on the card: mesh.txt 1024x1024 depth 8 through
+    ShardedRenderer in a world of one over NCCL, against the single-process
+    Renderer (the same wavefront route) to 1e-5, its K2 launches counted,
+    ms an iteration in turns with the single process; the sharded history
+    loss's gradients at world one against the single process; then two
+    ranks on the one card over gloo with CUDA tensors (two processes of
+    this script, `--shard-worker`), their gathered cornell image and
+    summed gradients against the single process. Returns K2's launches."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    from project3_cuda_path_tracer_tpu_torch.parallel import sharding
+    t0 = time.perf_counter()
+    sharding.init_distributed("nccl")
+    try:
+        if sharding.dist.get_backend() != "nccl":
+            raise AssertionError("world of one is not on nccl")
+        scene = settings_of(mesh_scene)
+        sh = sharding.ShardedRenderer(scene, device="cuda")
+        single = Renderer(scene, device="cuda")
+        zero_counts()
+        sh.step_many(SHARD_ITERS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        single.step_many(SHARD_ITERS)
+        gap = float(np.abs(sh.image() - single.image()).max())
+        runs = {"sharded": [], "single": []}
+        for k in ("sharded", "single", "single", "sharded"):
+            rr = sh if k == "sharded" else single
+            runs[k].append(time_ms(rr.step, 2, warm=0))
+        small = sized(SCENE, 64, 8)
+        loss, grads = shard_train_grads(small, sharding, PInv)
+    finally:
+        sharding.shutdown()
+    want_loss, want_grads = single_train_grads(small, PInv)
+    grad_err = max_rel(grads, want_grads)
+    rec = dict(metric="sharded_ms_per_iteration", backend="nccl", world=1,
+               scene="scenes/mesh.txt", resolution=[1024, 1024], depth=8,
+               value=float(np.mean(runs["sharded"])),
+               single_process_ms=float(np.mean(runs["single"])), runs=runs,
+               max_abs_gap=gap, atol=1e-5, k2_launches=counts["k2"],
+               counts=counts, train_loss=float(loss),
+               single_train_loss=float(want_loss),
+               train_grad_max_rel_err=grad_err, gpu=gpu)
+    log(json.dumps(rec))
+    if (gap > 1e-5 or counts["k2"] != 8 * SHARD_ITERS or counts["k1"]
+            or grad_err > 1e-4
+            or abs(float(loss) - float(want_loss)) > 1e-5 * abs(
+                float(want_loss))):
+        raise AssertionError(f"sharded world 1: {rec}")
+
+    # two ranks on the one card over gloo
+    # absolute: a file:// URL's path (and the workers' cwd is ROOT)
+    init = os.path.abspath(os.path.join(outdir, "gloo_store"))
+    out = os.path.abspath(os.path.join(outdir, "gloo_out.npz"))
+    for f in (init, out):
+        if os.path.exists(f):
+            os.remove(f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker", init,
+         str(rank), "2", out], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=300)[1][-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"gloo ranks failed: {errs}")
+    with np.load(out) as f:
+        got = dict(f)
+    for f in (init, out):  # gloo's store may have removed its file
+        if os.path.exists(f):
+            os.remove(f)
+    scene = sized(SCENE, 800, 8)
+    scene.settings.stratified = True
+    ref = Renderer(scene, device="cuda", route="wavefront")
+    ref.render(SHARD_ITERS)
+    gap2 = float(np.abs(got["image"] - ref.image()).max())
+    g2 = [torch.from_numpy(got[f"g{i}"]) if f"g{i}" in got else None
+          for i in range(len(want_grads))]
+    err2 = max_rel(g2, want_grads)
+    rec2 = dict(check="sharded 2 ranks gloo cuda tensors vs single process",
+                scene="scenes/cornell.txt", resolution=[800, 800], depth=8,
+                iterations=SHARD_ITERS, max_abs_gap=gap2, atol=1e-5,
+                train_loss=float(got["loss"]),
+                single_train_loss=float(want_loss),
+                train_grad_max_rel_err=err2,
+                seconds=time.perf_counter() - t0, gpu=gpu)
+    log(json.dumps(rec2))
+    if (gap2 > 1e-5 or err2 > 1e-4 or abs(float(got["loss"])
+                                          - float(want_loss))
+            > 1e-5 * abs(float(want_loss))):
+        raise AssertionError(f"sharded 2 ranks: {rec2}")
+    return dict(k2_launches=counts["k2"], ms=rec["value"],
+                single_ms=rec["single_process_ms"])
+
+
+def single_train_grads(scene, PInv):
+    """The single-process history loss and gradients on the inputs of
+    `shard_train_grads`."""
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+    w, h = scene.camera.resolution
+    dev = torch.device("cuda")
+    cfg = PInv.train_config(scene)
+    params = PInv.params_from_scene(scene, dev)
+    loss, _ = PInv.history_residual_grad_loss(
+        params, PI.to_device(scene.geoms, dev), PI.to_device(scene.meshes,
+                                                             dev),
+        texfetch.fuse(PI.to_device(scene.textures, dev)),
+        PInv.step_generator(4, 0, dev), cfg,
+        torch.full((h, w, 3), 0.3, device=dev),
+        torch.ones((h, w, 3), device=dev))
+    return loss.detach(), PInv._grads(loss, PInv.param_leaves(params))
+
+
+def max_rel(got, want) -> float:
+    """The largest relative gap between two gradient lists (None on both
+    sides where a leaf takes none; a None against a tensor is infinite)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            return float("inf")
+        if w is not None:
+            g, w = g.cpu().double(), w.cpu().double()
+            err = max(err, float(((g - w).abs() / (w.abs() + 1e-6)).max()))
+    return err
+
+
+def preview_phase(outdir: str, gpu: str) -> dict:
+    """Slice H on the card: the preview server (port 0) over cornell
+    800x800 depth 8 on the megakernel route; four iterations, a frame,
+    POST /orbit, then with the counts set to 0 four more iterations, which
+    must be four K1 launches on the new camera: the frame equals a fresh
+    Renderer's at the orbited camera, bit for bit, and differs from the
+    old view. Returns K1's launches."""
+    import urllib.request
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.app.preview import PreviewServer
+    from project3_cuda_path_tracer_tpu_torch.utils import image as img_io
+    r = Renderer(load_scene(SCENE), device="cuda")
+    if r.route != "megakernel":
+        raise AssertionError(f"preview: route {r.route}")
+    srv = PreviewServer(r, port=0).start()
+
+    def get(path, data=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}", data=data,
+            method="POST" if data is not None else "GET")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.read()
+    try:
+        srv.step_many(4)
+        before = get("/frame.png")
+        t0 = time.perf_counter()
+        get("/orbit?dphi=0.35&dtheta=-0.1&dzoom=-1.5", b"")
+        orbit_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        srv.step_many(4)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        frame = get("/frame.png")
+        state = json.loads(get("/state"))
+    finally:
+        srv.stop()
+    fresh_scene = load_scene(SCENE)
+    fresh_scene.camera = copy.deepcopy(r.scene.camera)
+    fresh = Renderer(fresh_scene, device="cuda")
+    fresh.render(4)
+    want = img_io.encode_png((np.clip(fresh.image(), 0, 1) * 255)
+                             .astype(np.uint8))
+    with open(os.path.join(outdir, "preview_orbit_4spp.png"), "wb") as f:
+        f.write(frame)
+    rec = dict(phase="preview orbit", scene="scenes/cornell.txt",
+               resolution=[800, 800], depth=8, state=state,
+               k1_launches=counts["k1"], counts=counts,
+               frame_equals_fresh_renderer=frame == want,
+               differs_from_old_view=frame != before, orbit_ms=orbit_ms,
+               png=os.path.join(outdir, "preview_orbit_4spp.png"), gpu=gpu)
+    log(json.dumps(rec))
+    if not (counts["k1"] == 4 and frame == want and frame != before
+            and state["iteration"] == 4
+            and sum(counts.values()) == counts["k1"]):
+        raise AssertionError(f"preview: {rec}")
+    return dict(k1_launches=counts["k1"])
+
+
+def app_phases(mesh_scene, outdir: str, gpu: str) -> dict:
+    """The train step through every scene (`train_textured_phases`), slice
+    G (`sharding_phases`) and slice H (`preview_phase`), with their wall
+    times; returns their launches for the `kernels` line."""
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start - sum(marks.values())
+    train = train_textured_phases(gpu)
+    mark("train_textured")
+    shard = sharding_phases(mesh_scene, outdir, gpu)
+    mark("sharding")
+    prev = preview_phase(outdir, gpu)
+    mark("preview")
+    log(json.dumps(dict(metric="app_summary",
+                        seconds=time.perf_counter() - t_start,
+                        seconds_by_part=marks, gpu=gpu)))
+    return dict(train=train, shard=shard, preview=prev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--outdir", default=os.path.join(ROOT, "out",
                                                      "chip_smoke"))
+    ap.add_argument("--shard-worker", nargs=4, default=None,
+                    metavar=("INIT", "RANK", "WORLD", "OUT"),
+                    help="run one rank of the 2-rank gloo phase (the script "
+                         "starts these itself)")
     args = ap.parse_args()
+    if args.shard_worker:
+        init, rank, world, out = args.shard_worker
+        return shard_worker(init, int(rank), int(world), out)
 
     # ---- 1. a card, and the repository beside this script -----------------
     if not torch.cuda.is_available():
@@ -3268,28 +3710,46 @@ def main() -> int:
         raise AssertionError("CLI wrote no PNG")
     log(json.dumps(dict(phase="cli", **metrics)))
 
+    # wall seconds of each part of the run, printed before the results
+    seconds = {"start_to_k1_timing": time.perf_counter() - t0}
+
+    def mark(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
     # ---- 7. timing at 800x800, depth 8: the A/B of K1's schedules ---------
     k1 = k1_timing(gpu, table, cfg)
+    mark("k1_timing")
 
     # ---- 8. the mesh path ---------------------------------------------------
     mesh, mesh_scene = mesh_phases(args.outdir, gpu)
+    mark("mesh")
 
     # ---- 9. the train step --------------------------------------------------
     train_phases(gpu, r.accum / r.iteration)
+    mark("train")
 
     # ---- 9b. direct lighting: NEE, RIS, ReSTIR, many lights -----------------
     nee_phases(args.outdir, gpu)
+    mark("nee")
 
     # ---- 9c. textures and environment lighting ------------------------------
     tex = textured_phases(args.outdir, gpu)
+    mark("textured")
 
     # ---- 9d. the integrator features: sort, compaction, roulette, Sobol,
     # SDFs, dispersion, the first-bounce cache, the clamp ---------------------
     mesh[0].update(integrator_phases(mesh_scene, args.outdir, gpu))
+    mark("integrator")
 
     # ---- 9e. the render services: adaptive sampling, the denoiser,
     # diagnostics, checkpoint and resume -------------------------------------
     mesh[0].update(services_phases(mesh_scene, args.outdir, gpu))
+    mark("services")
+
+    # ---- 9f. the train step through textured, SDF and dispersive scenes;
+    # sharding (slice G); the preview (slice H) -------------------------------
+    app = app_phases(mesh_scene, args.outdir, gpu)
+    mark("app")
     # K2's launches over every path driven with the counts set to 0
     k2 = mesh[0]
     by_path = {"mesh": k2["launches"], "mesh --nee": k2.pop("nee_launches"),
@@ -3297,17 +3757,30 @@ def main() -> int:
                "mesh --sort --compact": k2["compacted_launches"],
                "mesh first-bounce cache": sum(k2["cached_launches"]),
                "mesh --adaptive": k2["adaptive_launches"],
-               "mesh denoise G-buffer": k2["gbuffer_launches"]}
-    k2.update(launches=sum(by_path.values()), launches_by_path=by_path)
+               "mesh denoise G-buffer": k2["gbuffer_launches"],
+               "textured_env train step": app["train"]["k2_launches"],
+               "mesh sharded, world 1": app["shard"]["k2_launches"]}
+    k2.update(launches=sum(by_path.values()), launches_by_path=by_path,
+              train_step_ms=[k["held_ms"] for k in app["train"]["k2"]])
 
     # ---- 10. the probes P1 and P2 -------------------------------------------
     probes = probe_phases(gpu)
+    mark("probes")
+    log(json.dumps(dict(metric="run_seconds", total=time.perf_counter() - t0,
+                        seconds_by_part=seconds)))
     # P1's entry: its launches and times on the texture path (bounce 0's
     # fused-table indices), the probe's beside them
     p1 = tex["p1"][0]
     probe = probes[0]
+    p1_train = app["train"]["p1"]
     probe.update(
-        launches=tex["launches"], ms=p1["value"], cold_ms=p1["cold_ms"],
+        launches=tex["launches"] + app["train"]["p1_launches"],
+        launches_by_path={"textured_env": tex["launches"],
+                          "textured_env train step":
+                              app["train"]["p1_launches"]},
+        train_step_ms=[b["value"] for b in p1_train],
+        train_step_library_ms=[b["library_ms"] for b in p1_train],
+        ms=p1["value"], cold_ms=p1["cold_ms"],
         plain_ms=p1["plain_ms"], bound_ms=p1["bound_ms"],
         bound_by=p1["bound_by"], library_ms=p1["library_ms"],
         library_cold_ms=p1["library_cold_ms"], instance=p1["instance"],
@@ -3326,7 +3799,11 @@ def main() -> int:
         "name": "megakernel", "route": "cuda",
         "source": f"{PKG}/csrc/megakernel.cu",
         "replaces": "project3_cuda_path_tracer_tpu/ops/megakernel.py:149",
-        "launches": launches, "max_abs_err": main_cmp["max_abs_err"],
+        "launches": launches + app["preview"]["k1_launches"],
+        "launches_by_path": {
+            "cornell": launches,
+            "preview after an orbit": app["preview"]["k1_launches"]},
+        "max_abs_err": main_cmp["max_abs_err"],
         "library_ms": None, **k1}] + mesh + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,23 +2,27 @@
 
 Counterpart of project3_cuda_path_tracer_tpu/app/cli.py (reference
 semantics: src/main.cpp:33-97): progressive render to the scene's
-ITERATIONS budget, save `<outdir>/<FILE>.png` and exit. The flags are the
-JAX CLI's that the ported slice covers, plus `--device`. Every other JAX
-flag exits with code 2 and names the ROADMAP slice that will port it; none
-is silently ignored.
+ITERATIONS budget, save `<outdir>/<FILE>.png` (with `--timestamp-name`,
+`{FILE}.{timestamp}.{N}samp.png`, src/main.cpp:91-97) and exit. The flags
+are the JAX CLI's, plus `--device`; the two JAX flags that have no
+counterpart here exit with code 2 and say why, so none is silently
+ignored.
+
+`--sharded` renders through parallel/sharding.py: in one process a world
+of one; under `torchrun --nproc-per-node K` each rank renders its block of
+rows and rank 0 writes the files. The backend follows `--device`: nccl on
+the card, gloo on the CPU. `--preview PORT` serves the HTTP preview
+(app/preview.py) while the render runs.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+import time
 
-_SLICE_H = "slice H (the app)"
-# JAX CLI flag -> why the port does not take it yet
+# JAX CLI flag -> why the port does not take it
 UNPORTED_FLAGS = {
-    "--sharded": "slice G (sharding)",
-    "--preview": _SLICE_H, "--snapshot-every": _SLICE_H,
-    "--timestamp-name": _SLICE_H, "--debug-nans": _SLICE_H,
     "--no-bake": "no slice: XLA constant baking has no counterpart (the "
                  "scene table is a kernel input)",
     "--megakernel": "no slice: the renderer already takes the CUDA "
@@ -100,6 +104,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "iterations")
     p.add_argument("--resume", action="store_true",
                    help="resume from <out>.ckpt.npz if present")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard pixel rows over the ranks of "
+                        "torch.distributed (one process: a world of one; "
+                        "launch with torchrun for more)")
+    p.add_argument("--preview", type=int, default=0, metavar="PORT",
+                   help="serve a live HTTP preview on 127.0.0.1:PORT")
+    p.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                   help="write a progressive PNG every N iterations")
+    p.add_argument("--timestamp-name", action="store_true",
+                   help="reference-style {FILE}.{timestamp}.{N}samp name")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast: check the accumulator after every "
+                        "iteration and exit non-zero at the first NaN or "
+                        "Inf, naming the iteration")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
                    help="emit a JSON-line metrics record to stderr")
@@ -114,10 +132,9 @@ def main(argv=None) -> int:
     for tok in rest:
         flag = tok.split("=", 1)[0]
         if flag in UNPORTED_FLAGS:
-            print(f"{flag} is not ported to the torch package yet: "
-                  f"{UNPORTED_FLAGS[flag]} (ROADMAP.md Queue 1); use "
-                  "python -m project3_cuda_path_tracer_tpu for it",
-                  file=sys.stderr)
+            print(f"{flag} is not taken by the torch package: "
+                  f"{UNPORTED_FLAGS[flag]} (ROADMAP.md, not ported by "
+                  "decision)", file=sys.stderr)
             return 2
     if rest:
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
@@ -125,19 +142,15 @@ def main(argv=None) -> int:
         print("--adaptive is incompatible with --megakernel/--sort/"
               "--compact", file=sys.stderr)
         return 2
-    if args.restir and (args.sort or args.compact or args.adaptive):
+    if args.restir and (args.sort or args.compact or args.adaptive
+                        or args.sharded):
         print("--restir is incompatible with --megakernel/--sort/"
               "--compact/--adaptive/--sharded (identity single-device "
               "path order required)", file=sys.stderr)
         return 2
 
-    import torch
-
-    from ..render import checkpoint as ckpt
     from ..render.integrator import Renderer
     from ..scene.parser import load_scene
-    from ..utils.device import synchronize
-    from ..utils.metrics import RenderMetrics
 
     scene = load_scene(args.scene)
     st = scene.settings
@@ -164,44 +177,125 @@ def main(argv=None) -> int:
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, args.out or st.image_name)
 
-    renderer = Renderer(scene, device=args.device)
+    rank = 0
+    if args.sharded:
+        from ..parallel import sharding
+        sharding.init_distributed("nccl" if args.device == "cuda"
+                                  else "gloo")
+        renderer = sharding.ShardedRenderer(scene, device=args.device)
+        rank = renderer.rank
+        if args.preview and renderer.world > 1:
+            print("--preview with --sharded needs a world of one (the "
+                  "frame gather is a collective)", file=sys.stderr)
+            return 2
+    else:
+        renderer = Renderer(scene, device=args.device)
+
+    def say(msg):
+        if rank == 0:
+            print(msg, file=sys.stderr)
+
+    preview_srv = None
+    if args.preview:
+        from .preview import PreviewServer
+        preview_srv = PreviewServer(renderer, port=args.preview).start()
+        say(f"live preview at http://127.0.0.1:{preview_srv.port}/")
+    try:
+        return _render(args, scene, renderer, base, rank, say, preview_srv)
+    finally:
+        if preview_srv is not None:
+            preview_srv.stop()
+
+
+def _nonfinite(renderer, sharded: bool) -> bool:
+    """Whether some rank's accumulator holds a NaN or Inf (every rank gets
+    the same answer, so all of them stop together)."""
+    import torch
+    bad = ~torch.isfinite(renderer.accum).all()
+    if sharded and renderer.world > 1:
+        import torch.distributed as dist
+        flag = bad.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+    return bool(bad)
+
+
+def _render(args, scene, renderer, base, rank, say, preview_srv) -> int:
+    """The render loop of `main`, to the scene's ITERATIONS: snapshots,
+    checkpoints and the NaN check at their boundaries; then the save."""
+    import torch
+
+    from ..render import checkpoint as ckpt
+    from ..utils.device import synchronize
+    from ..utils.metrics import RenderMetrics
+
+    st = scene.settings
     start_iter = 0
     if args.resume:
         found = ckpt.find_checkpoint(base)
         if found:
             accum, start_iter, seed = ckpt.load_checkpoint(found, args.scene)
-            renderer.accum.copy_(torch.from_numpy(accum))
+            if args.sharded:
+                renderer.load_accum(accum)
+            else:
+                renderer.accum.copy_(torch.from_numpy(accum))
             renderer.iteration = start_iter
             renderer.seed = seed
             renderer.restore_extras(ckpt.load_extras(found))
-            print(f"resumed from {found} at iteration {start_iter}",
-                  file=sys.stderr)
+            say(f"resumed from {found} at iteration {start_iter}")
     w, h = scene.camera.resolution
     metrics = RenderMetrics(width=w, height=h, trace_depth=st.trace_depth)
-    print(f"rendering {args.scene}: {w}x{h}, {st.iterations} iterations, "
-          f"depth {st.trace_depth}, device={renderer.device}, "
-          f"route={renderer.route}", file=sys.stderr)
+    world = getattr(renderer, "world", 1)
+    say(f"rendering {args.scene}: {w}x{h}, {st.iterations} iterations, "
+        f"depth {st.trace_depth}, device={renderer.device}, "
+        f"route={renderer.route}"
+        + (f", sharded over {world} rank(s)" if args.sharded else ""))
+    step_many = (preview_srv.step_many if preview_srv is not None
+                 else renderer.step_many)
     metrics.start()
     done = start_iter
     while done < st.iterations:
-        # advance to the next checkpoint boundary
+        # advance to the next snapshot or checkpoint boundary (one
+        # iteration at a time under --debug-nans)
         nxt = st.iterations
-        if args.checkpoint_every:
-            nxt = min(nxt, (done // args.checkpoint_every + 1)
-                      * args.checkpoint_every)
-        renderer.step_many(nxt - done)
+        for every in (args.snapshot_every, args.checkpoint_every,
+                      1 if args.debug_nans else 0):
+            if every:
+                nxt = min(nxt, (done // every + 1) * every)
+        step_many(nxt - done)
         done = nxt
+        if args.debug_nans and _nonfinite(renderer, args.sharded):
+            say(f"debug-nans: the accumulator holds a NaN or Inf after "
+                f"iteration {done - 1} (0-based)")
+            return 1
+        if args.snapshot_every and done % args.snapshot_every == 0:
+            synchronize(renderer.device)
+            metrics.stop(done - start_iter - metrics._iters)
+            out = renderer.save(f"{base}.snap{done}")
+            say(f"[{done}/{st.iterations}] snapshot {out}")
+            if args.metrics and rank == 0:
+                metrics.emit(iteration=done)
+            metrics.start()
         if args.checkpoint_every and done % args.checkpoint_every == 0:
-            ckpt.save_checkpoint(base + ".ckpt.npz",
-                                 renderer.accum.cpu().numpy(), done,
-                                 renderer.seed, args.scene,
-                                 extras=renderer.checkpoint_extras())
+            accum = (renderer.full_accum() if args.sharded
+                     else renderer.accum).cpu().numpy()
+            extras = renderer.checkpoint_extras()
+            if rank == 0:
+                ckpt.save_checkpoint(base + ".ckpt.npz", accum, done,
+                                     renderer.seed, args.scene,
+                                     extras=extras)
     synchronize(renderer.device)
-    metrics.stop(max(st.iterations - start_iter, 0))
-    out = renderer.save(base, hdr=args.hdr, denoise=args.denoise,
+    if metrics._t0 is not None:
+        metrics.stop(max(st.iterations - start_iter - metrics._iters, 0))
+    out_base = base
+    if args.timestamp_name:
+        # {FILE}.{timestamp}.{N}samp (reference: src/main.cpp:91-97)
+        ts = time.strftime("%Y-%m-%d_%H-%M-%SZ", time.gmtime())
+        out_base = f"{base}.{ts}.{renderer.iteration}samp"
+    out = renderer.save(out_base, hdr=args.hdr, denoise=args.denoise,
                         gamma=args.gamma, aces=args.aces)
-    print(f"saved {out}", file=sys.stderr)
-    if args.metrics:
+    say(f"saved {out}")
+    if args.metrics and rank == 0:
         metrics.emit(final=True, output=out, device=str(renderer.device))
     return 0
 

@@ -20,9 +20,12 @@ A parameter is frozen with `requires_grad_(False)`: it then takes a zero
 gradient, which leaves it in place (the counterpart of optax.masked over a
 fresh optimizer state).
 
-Not ported, by decision: `_bake_static_tables` and the unroll/remat choice
-of `InverseRenderer`, both XLA compile knobs. PyTorch runs eagerly, and
-autograd keeps every bounce's saved tensors.
+The memory schedule: `train_config` takes the JAX InverseRenderer's remat
+rule (mesh scenes, and traces above 800x800 at depth 8) and adds SDF
+scenes; under `TraceConfig.remat` each bounce runs under
+torch.utils.checkpoint, so the backward pass keeps one bounce's saved
+tensors at a time. Not ported, by decision: `_bake_static_tables` and the
+unroll choice, XLA compile knobs.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from . import optim
 from ..ops import megakernel as mk
+from ..ops import texfetch
 from ..render import integrator as integ
 from ..scene import types as T
 from ..utils.device import resolve_device
@@ -244,6 +248,42 @@ def make_train_scan(geoms, meshes, textures, cfg: integ.TraceConfig,
     return run
 
 
+# The JAX InverseRenderer's schedule rule: a trace keeps every bounce's
+# residuals up to this many lane-bounces (800x800, depth 8) on scenes
+# without meshes; mesh scenes and larger traces recompute each bounce in
+# the backward pass (TraceConfig.remat). The port adds SDF scenes: its
+# eager march saves each of its 64 steps' planes, and sdf.txt's step at
+# 800x800 depth 8 runs out of an 80 GB H100 without remat (PERF.md).
+REMAT_LANE_BOUNCES = 800 * 800 * 8
+
+
+def train_config(scene: T.Scene, trace_depth: Optional[int] = None,
+                 remat: Optional[bool] = None) -> integ.TraceConfig:
+    """The train step's TraceConfig: the forward Renderer's scene-derived
+    fields (`integ.build_trace_config`: textures, bump and normal maps,
+    the sky, SDF kinds, dispersion, the filtering mode), with the draws
+    of the JAX train step (pseudo-random, the lens and shutter chains
+    always on so that their leaves take gradients), mesh hits recomputed
+    differentiably, and none of the render-only knobs (sort, compaction,
+    roulette, the clamp, NEE, adaptive sampling). `remat` defaults to
+    the rule of REMAT_LANE_BOUNCES."""
+    fwd = integ.build_trace_config(scene, scene.settings)
+    w, h = scene.camera.resolution
+    depth = trace_depth or scene.settings.trace_depth
+    has_mesh = T.MESH in fwd.geom_types
+    if remat is None:
+        remat = (has_mesh or bool(fwd.sdf_kinds)
+                 or w * h * depth > REMAT_LANE_BOUNCES)
+    return integ.TraceConfig(
+        width=w, height=h, trace_depth=depth,
+        antialias=scene.settings.antialias, geom_types=fwd.geom_types,
+        mesh_ids=fwd.mesh_ids, differentiable_mesh=has_mesh,
+        glossy=fwd.glossy, sky=fwd.sky, bump=fwd.bump, nmap=fwd.nmap,
+        bilinear=fwd.bilinear, bilinear_fast=fwd.bilinear_fast,
+        sdf_kinds=fwd.sdf_kinds, dispersion=fwd.dispersion,
+        remat=bool(remat))
+
+
 class InverseRenderer:
     """Fit scene parameters to a target image by gradient descent (the JAX
     InverseRenderer).
@@ -252,11 +292,13 @@ class InverseRenderer:
     its one-step-stale residual shifts the fit's equilibrium by about one
     Adam step of drift at a constant learning rate, so ``fit(steps)`` ends
     with ``polish_steps`` two-render unbiased steps on the same optimizer
-    state (default POLISH_STEPS, capped at half the fit). Mesh scenes
-    recompute their hits differentiably; scenes with textures, checkers,
-    bump or normal maps, an env map, the sky, SDF geoms or dispersion raise
-    NotImplementedError (training through them is not ported). `device` is "cuda" or "cpu" and is
-    never chosen for the caller."""
+    state (default POLISH_STEPS, capped at half the fit). It trains through
+    every scene the forward Renderer draws (`train_config`): mesh hits are
+    recomputed differentiably, and textures, checkers, bump and normal
+    maps, the env map, the sky, SDF geoms and dispersion carry their
+    gradients. `remat` overrides the memory schedule's rule
+    (`train_config`). `device` is "cuda" or "cpu" and is never chosen for
+    the caller."""
 
     # Adam's momentum horizon is 1/(1-b1) = 10 steps; three times that
     # replaces the stale history equilibrium with the unbiased one.
@@ -266,32 +308,10 @@ class InverseRenderer:
                  learning_rate: float = 1e-2,
                  trace_depth: Optional[int] = None, seed: int = 0,
                  history: bool = True, polish_steps: Optional[int] = None,
-                 device: str = "cuda"):
-        mt = scene.materials
-        if (scene.geoms.type == T.SDF).any() or (
-                mt.dispersion is not None and (mt.dispersion > 0).any()):
-            raise NotImplementedError(
-                "training through SDF geoms or spectral dispersion is not "
-                "ported yet (ROADMAP.md Queue 1, textured training)")
-        textured = integ.texture_features(scene)
-        if textured is not None:
-            raise NotImplementedError(
-                f"training through a scene with {textured} is not ported "
-                "yet: gradients through textured shading wait (ROADMAP.md "
-                "Queue 1, textured training)")
+                 device: str = "cuda", remat: Optional[bool] = None):
         self.device = resolve_device(device)
         dev = self.device
-        w, h = scene.camera.resolution
-        types = scene.geoms.type.tolist()
-        has_mesh = T.MESH in types
-        self.cfg = integ.TraceConfig(
-            width=w, height=h,
-            trace_depth=trace_depth or scene.settings.trace_depth,
-            antialias=scene.settings.antialias,
-            geom_types=tuple(int(t) for t in types),
-            mesh_ids=tuple(int(m) for m in scene.geoms.mesh_id.tolist()),
-            differentiable_mesh=has_mesh,
-            glossy=bool((scene.materials.specular_exponent > 0).any()))
+        self.cfg = train_config(scene, trace_depth, remat)
         self.scene = scene
         self.target = torch.as_tensor(np.asarray(target, np.float32),
                                       device=dev)
@@ -302,7 +322,7 @@ class InverseRenderer:
         self.learning_rate = learning_rate
         self.tables = (integ.to_device(scene.geoms, dev),
                        integ.to_device(scene.meshes, dev),
-                       integ.to_device(scene.textures, dev))
+                       texfetch.fuse(integ.to_device(scene.textures, dev)))
         self.packed_meshes = tuple(integ.to_device(p, dev)
                                    for p in scene.packed_meshes)
         self._step = make_train_step(

@@ -108,8 +108,9 @@ def require_supported(scene: T.Scene) -> None:
     why = _unsupported(scene)
     if why is not None:
         raise NotImplementedError(
-            f"scene not renderable by the torch port yet: it has {why} "
-            "(ROADMAP.md Queue 1 lists the slices that add it)")
+            f"scene not renderable by the megakernel (K1): it has {why} "
+            "(render.integrator.Renderer sends such scenes down the "
+            "wavefront route)")
 
 
 # ---------------------------------------------------------------------------

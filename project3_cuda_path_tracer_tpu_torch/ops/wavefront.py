@@ -145,6 +145,21 @@ def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
         for k, a in enumerate(_ALPHAS[num_dims][:num_dims]))
 
 
+def rand_planes(generator: Optional[torch.Generator], rows: int, n: int,
+                dev, frame_range: Tuple[int, ...] = (),
+                full: int = 0) -> torch.Tensor:
+    """[rows, n] uniforms from `generator`, drawn as one rows*n call; with
+    `frame_range` (lo, hi), drawn for the `full` lanes of the whole frame
+    and sliced to lo..hi-1, so a sharded trace sees the numbers of the
+    single-process one (each rank pays for the whole frame's draws)."""
+    if not frame_range:
+        return torch.rand((rows * n,), generator=generator, dtype=F32,
+                          device=dev).reshape(rows, n)
+    lo, hi = frame_range
+    return torch.rand((rows * full,), generator=generator, dtype=F32,
+                      device=dev).reshape(rows, full)[:, lo:hi]
+
+
 def generate_rays_planar(cam: dict, width: int, height: int,
                          generator: Optional[torch.Generator] = None,
                          antialias: bool = True, dof: bool = True,
@@ -152,7 +167,8 @@ def generate_rays_planar(cam: dict, width: int, height: int,
                          iteration=None, cam_u: Optional[torch.Tensor] = None,
                          strat_impl: str = "lattice",
                          pixel_override: Optional[torch.Tensor] = None,
-                         strat_index: Optional[torch.Tensor] = None):
+                         strat_index: Optional[torch.Tensor] = None,
+                         frame_range: Tuple[int, ...] = ()):
     """Primary rays as (origin V3, dir V3, time [N], pixel_index [N]), path i
     at pixel (i % W, i // W).
 
@@ -165,9 +181,20 @@ def generate_rays_planar(cam: dict, width: int, height: int,
     pixel ids, several paths may share one) path i shoots at pixel
     pixel_override[i], and N is the override's length. `strat_index` ([N],
     the surrogate pixel + occurrence * W*H, below 2^31) then keys the
-    stratified draws, so that co-located paths draw distinct samples."""
+    stratified draws, so that co-located paths draw distinct samples.
+
+    Sharding (parallel/sharding.py): `frame_range` (lo, hi) traces the
+    paths lo..hi-1 of the frame, and its `torch.rand` draws are taken for
+    the whole W*H frame and sliced, so that the rows of a sharded frame
+    equal the single-process frame's."""
     dev = cam["position"].device
-    if pixel_override is not None:
+    full = width * height
+    lo, hi = frame_range if frame_range else (0, full)
+    if frame_range:
+        pix = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        n = hi - lo
+        xi, yi = pix % width, pix // width
+    elif pixel_override is not None:
         pix = pixel_override.to(device=dev, dtype=torch.int64)
         n = pix.shape[0]
         xi, yi = pix % width, pix // width
@@ -188,8 +215,8 @@ def generate_rays_planar(cam: dict, width: int, height: int,
         if strat:
             return stratified_planes(iteration, CAMERA_SLOT, samp_key,
                                      num, salt, impl=strat_impl)
-        u = torch.rand((num * n,), generator=generator, dtype=F32, device=dev)
-        return tuple(u[i * n:(i + 1) * n] for i in range(num))
+        u = rand_planes(generator, num, n, dev, frame_range, full)
+        return tuple(u[i] for i in range(num))
 
     if antialias:
         u_ax, u_ay = draw(2, SALT_AA, 0)

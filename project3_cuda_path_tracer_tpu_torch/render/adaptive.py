@@ -28,8 +28,10 @@ order on the card as on the CPU (a sort, then a sum a run), so a render
 does not depend on the order of atomics. The two packages group the sums
 differently, so they agree to float re-association, not bit for bit.
 
-`plan_epoch_sharded` and `identity_plan_sharded` come with sharding
-(slice G).
+`plan_epoch_sharded` and `identity_plan_sharded` are the planners of the
+sharded renderer (parallel/sharding.py): each rank's row block gets its
+own W*H/world paths, apportioned within the block, so every path's pixel
+stays in its rank's accumulator rows.
 """
 from __future__ import annotations
 
@@ -224,6 +226,60 @@ def plan_from_err(err: np.ndarray, floor_frac: float = 0.15,
     surr = pix + np.minimum(occ, cap) * npix
     count_img = n.reshape(h, w).astype(np.float32)
     return torch.from_numpy(pix), torch.from_numpy(surr), count_img
+
+
+def plan_epoch_sharded(accum: np.ndarray, accum2: np.ndarray,
+                       count: np.ndarray, ndev: int,
+                       floor_frac: float = 0.15):
+    """Per-rank adaptive plan (the JAX `plan_epoch_sharded`): the pixel rows
+    split into `ndev` equal row blocks, each block's W*H/ndev path budget
+    apportioned within the block, so every path's pixel stays on its own
+    rank. Returns (pix, surrogate) as int64 tensors (global pixel ids,
+    block after block) and the count image, float32 numpy [h, w]."""
+    h, w = count.shape
+    if h % ndev:
+        raise ValueError(f"height {h} not divisible by {ndev} ranks")
+    rows = h // ndev
+    cnt = np.maximum(np.asarray(count, np.float64), 1.0)
+    lum = (np.asarray(accum[..., 0], np.float64) * _LW[0]
+           + np.asarray(accum[..., 1], np.float64) * _LW[1]
+           + np.asarray(accum[..., 2], np.float64) * _LW[2])
+    mean = lum / cnt
+    var = np.maximum(np.asarray(accum2, np.float64) / cnt - mean ** 2, 0.0)
+    g = max(float(lum.sum() / cnt.sum()), 1e-12)
+    err = (np.sqrt(var / cnt) + 0.5 * g / cnt) / (mean + 0.1 * g + 1e-6)
+    npix_loc = rows * w
+    pix_all, surr_all, cimg_all = [], [], []
+    for d in range(ndev):
+        e = np.asarray(err[d * rows:(d + 1) * rows], np.float64)
+        u = e.sum() / npix_loc
+        e = (1.0 - floor_frac) * e + floor_frac * max(u, 1e-12)
+        n = apportion(e, npix_loc)
+        pix = d * npix_loc + np.repeat(np.arange(npix_loc, dtype=np.int64),
+                                       n)
+        starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+        occ = np.arange(npix_loc, dtype=np.int64) - np.repeat(starts, n)
+        cap = (2 ** 31 - 1) // (h * w) - 1
+        surr_all.append(pix + np.minimum(occ, cap) * (h * w))
+        pix_all.append(pix)
+        cimg_all.append(n.reshape(rows, w))
+    return (torch.from_numpy(np.concatenate(pix_all)),
+            torch.from_numpy(np.concatenate(surr_all)),
+            np.concatenate(cimg_all).astype(np.float32))
+
+
+def identity_plan_sharded(width: int, height: int, ndev: int,
+                          tile: int = 0):
+    """Warm-up mapping of the sharded renderer (the JAX
+    `identity_plan_sharded`): the identity, or a per-block tile swizzle
+    when the tile divides the block's rows (a tile across two blocks would
+    move paths between ranks)."""
+    rows = height // ndev
+    if tile and (rows % tile or width % tile):
+        tile = 0
+    idx = torch.cat([identity_plan(width, rows, tile)[0] + d * rows * width
+                     for d in range(ndev)])
+    return idx, idx.clone(), np.ones((height, width), np.float32)
 
 
 def identity_plan(width: int, height: int, tile: int = 0):

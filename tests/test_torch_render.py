@@ -152,8 +152,16 @@ def test_cli_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--sharded", "--snapshot-every=4",
-                                  "--timestamp-name", "--debug-nans"])
+                                  "--timestamp-name", "--debug-nans",
+                                  "--no-bake", "--megakernel"])
 def test_cli_unported_flag_exits_2(flag, capsys):
+    """The JAX flags the port does not take (--no-bake, --megakernel, by
+    decision) exit 2 and say why; the app's flags are taken now
+    (tests/test_torch_app.py runs them)."""
+    if flag.split("=")[0] not in cli.UNPORTED_FLAGS:
+        args, rest = cli.build_parser().parse_known_args(["s.txt", flag])
+        assert rest == []
+        return
     rc = cli.main([os.path.join(SCENES, "cornell.txt"), flag])
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err

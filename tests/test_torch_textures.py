@@ -622,13 +622,18 @@ def test_eligible_sphere_batch_leaves_out_textured(textured_mats, tmp_path):
 
 
 def test_train_step_refuses_textured_scenes(textured):
-    """Gradients through textured shading are not ported: the train step
-    raises and names what waits."""
+    """The train step no longer refuses a textured scene: InverseRenderer
+    builds its config with the scene's texture fields and fused tables
+    (the gradients against jax.grad: tests/test_torch_train_textured.py)."""
     from project3_cuda_path_tracer_tpu_torch.models.inverse import \
         InverseRenderer
     _, ps = textured
-    with pytest.raises(NotImplementedError, match="textured training"):
-        InverseRenderer(ps, np.zeros((4, 4, 3), np.float32), device="cpu")
+    w, h = ps.camera.resolution
+    inv = InverseRenderer(ps, np.zeros((h, w, 3), np.float32),
+                          device="cpu")
+    assert inv.cfg.bump == bool((ps.textures.bump[:, 0] > 0).any())
+    assert inv.cfg.nmap == bool((ps.textures.nrm_id >= 0).any())
+    assert inv.cfg.sky == bool(float(ps.textures.sky[0]) > 0)
 
 
 def small_textured_copy(tmp_path, res=16, name="textured_env") -> str:
