@@ -97,6 +97,21 @@ once) and drives these paths:
   - the app (slice H): the HTTP preview on an ephemeral port over cornell
     800x800 depth 8, POST /orbit, then four K1 launches whose frame equals
     a fresh Renderer's at the new camera bit for bit;
+  - the chunked render (slice I): `Renderer.step_many` on the wavefront
+    route replays one captured CUDA graph of an iteration; mesh.txt
+    1024x1024 depth 8 (plain and --sort --compact), textured_env 2048x2048
+    depth 8, cornell --nee, manylights --restir 8, sdf.txt, cornell
+    --adaptive across two epochs, ShardedRenderer in a world of one and a
+    wavefront preview after POST /orbit (timed, as is a frame, while the
+    preview's loop runs) each run n eager step() calls against
+    step_many(n) from the same start, bit for bit (accumulation,
+    reservoir, adaptive sums and counts), then ms an iteration of both
+    forms in turns, the kernels and device busy share of a replay (an
+    eager step's are the earlier paths'), K2/K3/P1 launches a replay (the
+    capture's count, held against the kernels' device tallies over the
+    chunk and over one replay, beside the replay's kernels by name in
+    torch.profiler's records), capture and instantiate seconds and the
+    graph pool's bytes;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -105,6 +120,10 @@ once) and drives these paths:
     turns warm and cold beside torch.take; every P2 kind at 256 steps and,
     against the first port's kernel, at 4,096, with the chain floor's terms
     (a dependent row load, FP32 operation and shuffle) measured alone.
+Where a path runs through `Renderer.step_many`, which replays a captured
+CUDA graph on the wavefront route, its launches are the ones the kernels
+count themselves in device memory as they run (`measured_launches`): a
+wrapper counts a launch where it enqueues one, which a replay does not do.
 Kernel and plain version are timed in turns. Every phase raises on failure,
 so any failure exits non-zero. Without a card, or without the rest of the
 repository beside it, it exits non-zero before printing any result.
@@ -759,19 +778,19 @@ def mesh_phases(outdir: str, gpu: str):
             raise AssertionError(f"K2 and K3 disagree on {tag}: {agree}")
 
     # ---- 8b. the mesh path: Renderer on mesh.txt ---------------------------
-    mk.LAUNCHES = P8.LAUNCHES = P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
+    # one eager iteration, the capture, seven replays: the launches are the
+    # kernels' device tallies (`measured_launches`)
     r = Renderer(scene, device="cuda")
-    r.step_many(8)
-    torch.cuda.synchronize()
-    k2_launches = P8.LAUNCHES
-    others = (mk.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY,
-              PB.LAUNCHES + PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB)
-    if r.route != "wavefront" or k2_launches != 8 * 8 or any(others):
+    ran = measured_launches(lambda: r.step_many(8))
+    k2_launches, wrappers = ran["k2"], ran["wrappers"]
+    others = (ran["k1"], wrappers["k2_other"], ran["k3_k4"])
+    if (r.route != "wavefront" or k2_launches != 8 * 8
+            or not wrappers["k2"] or any(others)):
         raise AssertionError(f"mesh path: route {r.route}, K2 launched "
-                             f"{k2_launches} times persistent (want 64), "
-                             f"K1 / K2 grid / K2 tiny / K3 / K4 {others} "
-                             "(want none)")
+                             f"{k2_launches} times (want 64), its wrapper "
+                             f"counted {wrappers['k2']} (want > 0), K1 / "
+                             f"K2 grid and tiny (wrapper) / K3 and K4 "
+                             f"{others} (want none)")
     img = r.accum.cpu().numpy()
     if img.shape != (1024, 1024, 3) or not np.isfinite(img).all() \
             or (img < 0).any():
@@ -780,30 +799,31 @@ def mesh_phases(outdir: str, gpu: str):
     log(json.dumps(dict(phase="mesh main path", scene="scenes/mesh.txt",
                         resolution=[w, h], depth=depth,
                         iterations=r.iteration, launches=k2_launches,
+                        wrapper_counts=wrappers,
+                        graph_replays=r.graph.replays,
+                        graph_launches_per_replay=r.graph.launches,
                         grid_launches=others[1],
                         megakernel_launches=others[0],
                         mean=float(img.mean() / r.iteration), png=png)))
 
     # The same path on the binary tree (pack_all): K3, two iterations, held
     # against the 8-wide tree's image on the same draws.
-    P8.LAUNCHES = P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
     rb = Renderer(dataclasses.replace(
         scene, packed_meshes=PB.pack_all(scene.meshes)), device="cuda")
-    rb.step_many(2)
-    torch.cuda.synchronize()
-    k3_launches = PB.LAUNCHES
-    others = (PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB, P8.LAUNCHES,
-              P8.LAUNCHES_GRID, P8.LAUNCHES_TINY)
+    ran = measured_launches(lambda: rb.step_many(2))
+    k3_launches = ran["k3_k4"]
+    others = (PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB, ran["k2"],
+              ran["wrappers"]["k2_other"])
     log(json.dumps(dict(phase="mesh binary path", iterations=rb.iteration,
                         k3_route_instance="grid", k3_launches=k3_launches,
+                        wrapper_counts=ran["wrappers"],
                         k3_persistent_launches=others[0],
                         k4_launches=others[1], k2_launches=others[2])))
-    if k3_launches != 2 * 8 or any(others):
-        raise AssertionError(f"binary mesh path launched K3's route "
-                             f"instance {k3_launches} times for 2 "
-                             "iterations (want 16); K3 persistent / K4 / K2 "
-                             f"/ K2 grid / K2 tiny {others} (want none)")
+    if k3_launches != 2 * 8 or not ran["wrappers"]["k3_k4"] or any(others):
+        raise AssertionError(f"binary mesh path launched K3 {k3_launches} "
+                             "times for 2 iterations (want 16); K3 "
+                             "persistent and K4 (wrappers) / K2 / K2 grid "
+                             f"and tiny (wrapper) {others} (want none)")
     rw = Renderer(scene, device="cuda")
     rw.step_many(2)
     compare_lanes("mesh binary tree vs 8-wide 1024x1024 d8 2spp", rb.accum,
@@ -1246,27 +1266,58 @@ def capturing(module, name: str, keep, limit: int = 2):
 
 def zero_counts() -> None:
     """Every kernel's launch counts to 0."""
-    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
-    mk.LAUNCHES = mk.LAUNCHES_GRID = 0
-    P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = P8.LAUNCHES_GRID = 0
-    P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
-    P1.LAUNCHES = P1.LAUNCHES_AB = 0
+    from project3_cuda_path_tracer_tpu_torch.utils.launches import \
+        zero_launch_counts
+    zero_launch_counts()
 
 
 def read_counts() -> dict:
-    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
-    return dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES,
-                k2_any_hit=P8.LAUNCHES_ANY_HIT,
-                k2_other=P8.LAUNCHES_GRID + P8.LAUNCHES_TINY,
-                k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT + PB.LAUNCHES_SUB,
-                p1=P1.LAUNCHES, p1_ab=P1.LAUNCHES_AB)
+    """The kernels' wrappers' launch counts (`utils.launches`)."""
+    from project3_cuda_path_tracer_tpu_torch.utils.launches import \
+        launch_counts
+    return launch_counts()
+
+
+# a count of `read_counts` -> the kernel's name in the profiler's records,
+# as a whole identifier (not torch's vectorized_gather_kernel for P1's
+# gather_kernel); K2's template arguments are <schedule, any-hit, stack>
+KERNEL_NAMES = {"k1": r"(?<!\w)megakernel(?!\w)",
+                "k2": r"(?<!\w)traverse8_kernel(?!\w)",
+                "k2_any_hit": r"(?<!\w)traverse8_kernel<\d+, true",
+                "k3_k4": r"(?<!\w)binary_kernel(?!\w)",
+                "p1": r"(?<!\w)gather_kernel(?!\w)"}
+
+
+def named_launches(prof) -> dict:
+    """Each kernel's launches (KERNEL_NAMES) in a torch.profiler run's
+    records. Raises if it recorded no device activity."""
+    events = [(ev.key, ev.count) for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device activity")
+    return {tag: sum(c for name, c in events if re.search(rx, name))
+            for tag, rx in KERNEL_NAMES.items()}
+
+
+def measured_launches(fn) -> dict:
+    """Run `fn()` with every count set to 0 just before it, and return the
+    launches that ran on the card: K2's, K3/K4's and P1's from the tallies
+    the kernels themselves keep in device memory
+    (`utils.launches.device_launches`), K1's from its wrapper (its route
+    never replays a graph); under "wrappers", the wrappers' counts over
+    the same run. Where `fn` replays a captured graph the two differ: a
+    wrapper counts a launch where it enqueues one, which under the capture
+    happens once without the kernel running, and a replay runs the
+    captured launches with no wrapper call, while each launch that runs
+    adds one to its kernel's tally."""
+    from project3_cuda_path_tracer_tpu_torch.utils.launches import \
+        device_launches
+    torch.cuda.synchronize()
+    zero_counts()
+    fn()
+    torch.cuda.synchronize()
+    wrappers = read_counts()
+    return dict(device_launches(), k1=wrappers["k1"], wrappers=wrappers)
 
 
 def textured_copy(outdir: str, name: str, res: int, extra: str = "",
@@ -2162,12 +2213,15 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
         raise AssertionError(f"fit recovered {got}, not 0.98 +- 0.2")
 
 
-def profile_one(fn, top: int = 6, host_ops: bool = True) -> dict:
+def profile_one(fn, top: int = 6, host_ops: bool = True,
+                named: bool = False) -> dict:
     """One call of `fn` under torch.profiler: device time of its kernels
     against the wall time of the call (the device-busy share), and the
     `top` kernels by device time (name, launches, us). `host_ops=False`
     records the device activity alone, which spares the profiler a host
-    event per op on iterations of 10^5 eager ops."""
+    event per op on iterations of 10^5 eager ops. `named`: each kernel's
+    launches by name (`named_launches`, which raises where the profiler
+    recorded no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA]
@@ -2178,6 +2232,7 @@ def profile_one(fn, top: int = 6, host_ops: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = named_launches(prof) if named else None
     per_kernel = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -2189,11 +2244,14 @@ def profile_one(fn, top: int = 6, host_ops: bool = True) -> dict:
     if device_us == 0:
         return dict(profile="not measured: no device events")
     per_kernel.sort(reverse=True)
-    return dict(profiled_wall_us=wall_us, device_us=device_us,
-                device_busy_share=device_us / wall_us,
-                kernels_launched=sum(k[1] for k in per_kernel),
-                top_kernels=[dict(name=n, launches=c, us=t)
-                             for t, c, n in per_kernel[:top]])
+    out = dict(profiled_wall_us=wall_us, device_us=device_us,
+               device_busy_share=device_us / wall_us,
+               kernels_launched=sum(k[1] for k in per_kernel),
+               top_kernels=[dict(name=n, launches=c, us=t)
+                            for t, c, n in per_kernel[:top]])
+    if by_name is not None:
+        out["named_launches"] = by_name
+    return out
 
 
 def p1_sizes(gpu: str) -> dict:
@@ -2777,21 +2835,19 @@ def adaptive_cornell(outdir: str, gpu: str, truth: torch.Tensor) -> dict:
     ra = Renderer(settings_of(cornell, stratified=True, adaptive=True,
                               adaptive_epoch=8), device="cuda")
     replans = timed_replans(ra)
-    zero_counts()
-    ra.step_many(spp)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    ran = measured_launches(lambda: ra.step_many(spp))
+    counts = {k: ran[k] for k in KERNEL_NAMES}
     cnt = ra.count.astype(np.float64)
     rec = dict(phase="cornell adaptive path", scene="scenes/cornell.txt",
                flags="--adaptive --adaptive-epoch 8 --stratified",
                resolution=[w, h], route=ra.route, depth=ra.cfg.trace_depth,
-               iterations=spp,
+               iterations=spp, wrapper_counts=ran["wrappers"],
                **counts, count_sum=cnt.sum(), count_std=cnt.std(),
                count_min=cnt.min(), count_max=cnt.max(),
                replan_host_ms=replans, gpu=gpu)
     log(json.dumps(rec))
     if (ra.route != "wavefront" or any(counts.values())
-            or cnt.sum() != spp * npix or not cnt.std() > 0
+            or any(ran["wrappers"].values()) or cnt.sum() != spp * npix or not cnt.std() > 0
             or len(replans) != 3):
         raise AssertionError(f"cornell adaptive path: {rec}")
     k1 = Renderer(cornell, device="cuda")
@@ -3353,10 +3409,8 @@ def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
         scene = settings_of(mesh_scene)
         sh = sharding.ShardedRenderer(scene, device="cuda")
         single = Renderer(scene, device="cuda")
-        zero_counts()
-        sh.step_many(SHARD_ITERS)
-        torch.cuda.synchronize()
-        counts = read_counts()
+        ran = measured_launches(lambda: sh.step_many(SHARD_ITERS))
+        counts = {k: ran[k] for k in KERNEL_NAMES}
         single.step_many(SHARD_ITERS)
         gap = float(np.abs(sh.image() - single.image()).max())
         runs = {"sharded": [], "single": []}
@@ -3374,12 +3428,13 @@ def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
                value=float(np.mean(runs["sharded"])),
                single_process_ms=float(np.mean(runs["single"])), runs=runs,
                max_abs_gap=gap, atol=1e-5, k2_launches=counts["k2"],
-               counts=counts, train_loss=float(loss),
+               counts=counts, wrapper_counts=ran["wrappers"],
+               train_loss=float(loss),
                single_train_loss=float(want_loss),
                train_grad_max_rel_err=grad_err, gpu=gpu)
     log(json.dumps(rec))
     if (gap > 1e-5 or counts["k2"] != 8 * SHARD_ITERS or counts["k1"]
-            or grad_err > 1e-4
+            or not ran["wrappers"]["k2"] or grad_err > 1e-4
             or abs(float(loss) - float(want_loss)) > 1e-5 * abs(
                 float(want_loss))):
         raise AssertionError(f"sharded world 1: {rec}")
@@ -3523,6 +3578,208 @@ def preview_phase(outdir: str, gpu: str) -> dict:
             and sum(counts.values()) == counts["k1"]):
         raise AssertionError(f"preview: {rec}")
     return dict(k1_launches=counts["k1"])
+
+
+# the counts of KERNEL_NAMES a chunk's graph may hold
+CHUNK_KERNELS = ("k2", "k2_any_hit", "k3_k4", "p1")
+
+
+def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
+                  gpu: str, config: str, k: int = 3, **extra) -> dict:
+    """After `eager` took n step() calls and `chunk` n iterations, the last
+    `window` of them one run of step_many measured by `measured_launches`
+    (`ran`): the states bit for bit (`same_state`); ms an iteration of both
+    forms in turns (eager, graph, graph, eager; CUDA events around k
+    iterations each, the host's side included); one replay under
+    torch.profiler's device activity (kernels, busy share, the
+    replay's kernels by name, printed: the profiler loses a few records of
+    a run now and then, so it counts no launch that is checked); the
+    graph's launches a replay, capture and instantiate seconds and pool
+    bytes. Raises unless the states are equal and the kernels' device
+    tallies show each kernel of CHUNK_KERNELS launched `window` times the
+    graph's launches a replay over the measured run and once that over
+    the profiled replay."""
+    from project3_cuda_path_tracer_tpu_torch.render.integrator import \
+        same_state
+    from project3_cuda_path_tracer_tpu_torch.utils.launches import \
+        device_launches
+    torch.cuda.synchronize()
+    equal = same_state(eager, chunk)
+    g = chunk.graph
+    if g is None:
+        raise AssertionError(f"chunk {tag}: nothing was captured")
+    per = {key: g.launches[key] for key in CHUNK_KERNELS}
+    runs = {"eager": [], "graph": []}
+    for form in ("eager", "graph", "graph", "eager"):
+        fn = eager.step if form == "eager" else (lambda: chunk.step_many(1))
+        runs[form].append(time_ms(fn, k, warm=0))
+    zero_counts()
+    prof = profile_one(lambda: chunk.step_many(1), host_ops=False,
+                       named=True)
+    replay_ran = device_launches()
+    ms = {f: float(np.mean(v)) for f, v in runs.items()}
+    named = {key: prof["named_launches"][key] for key in CHUNK_KERNELS}
+    launches = {key: ran[key] for key in CHUNK_KERNELS}
+    replay_launches = {key: replay_ran[key] for key in CHUNK_KERNELS}
+    rec = dict(metric=f"chunk_{tag}", config=config, bitwise=equal,
+               iterations=n, ms_per_iteration_eager=ms["eager"],
+               ms_per_iteration_graph=ms["graph"],
+               eager_over_graph=ms["eager"] / ms["graph"], runs=runs,
+               launches_per_replay=per, measured_iterations=window,
+               launches=launches, wrapper_counts=ran["wrappers"],
+               replay_launches=replay_launches,
+               replay_named_launches=named, replays=g.replays,
+               capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+               pool_bytes=g.pool_bytes,
+               replay_kernels=prof.get("kernels_launched"),
+               replay_device_busy_share=prof.get("device_busy_share"),
+               replay_device_us=prof.get("device_us"),
+               replay_top_kernels=prof.get("top_kernels"), gpu=gpu,
+               **extra)
+    log(json.dumps(rec))
+    if not equal:
+        raise AssertionError(f"chunk {tag}: the replayed state differs from "
+                             "the eager loop's")
+    if replay_launches != per:
+        raise AssertionError(f"chunk {tag}: a replay launched "
+                             f"{replay_launches}, the capture counted {per}")
+    if launches != {key: window * per[key] for key in CHUNK_KERNELS}:
+        raise AssertionError(f"chunk {tag}: {window} iterations launched "
+                             f"{launches}, {per} a replay")
+    return rec
+
+
+def chunk_config(tag: str, make, n: int, gpu: str, config: str,
+                 k: int = 3, **extra) -> dict:
+    """Two Renderers from `make()`: n eager step() calls on one, step_many(n)
+    on the other measured by `measured_launches` (`chunk_measure`)."""
+    eager, chunk = make(), make()
+    if not chunk.chunkable():
+        raise AssertionError(f"chunk {tag}: route {chunk.route} not "
+                             "chunkable")
+    ran = measured_launches(lambda: chunk.step_many(n))
+    for _ in range(n):
+        eager.step()
+    return chunk_measure(tag, eager, chunk, n, ran, n, gpu, config, k,
+                         **extra)
+
+
+def chunk_phases(mesh_scene, outdir: str, gpu: str) -> dict:
+    """Slice I on the card: each configuration renders n iterations as n
+    eager step() calls and as step_many(n) (one eager iteration, the
+    capture, n - 1 replays) from the same start, held bit for bit and
+    measured by `chunk_measure`. The preview's wavefront render: while its
+    loop runs, POST /orbit and a frame, each timed from request to reply;
+    then the replays after the orbit against a fresh Renderer's eager
+    steps at the new camera. Returns the kernels' measured launches and
+    the records."""
+    import threading
+    import urllib.request
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.app.preview import PreviewServer
+    from project3_cuda_path_tracer_tpu_torch.parallel import sharding
+    t_start = time.perf_counter()
+    cornell = load_scene(SCENE)
+    recs = {}
+    recs["mesh"] = chunk_config(
+        "mesh", lambda: Renderer(settings_of(mesh_scene, stratified=True),
+                                 device="cuda"), 4, gpu,
+        "mesh.txt 1024x1024 depth 8 --stratified")
+    recs["mesh_sort_compact"] = chunk_config(
+        "mesh_sort_compact", lambda: Renderer(settings_of(
+            mesh_scene, stratified=True, sort_materials=True, compact=True),
+            device="cuda"), 4, gpu,
+        "mesh.txt 1024x1024 depth 8 --stratified --sort --compact")
+    textured = load_scene(TEXTURED)
+    recs["textured_env"] = chunk_config(
+        "textured_env", lambda: Renderer(textured, device="cuda"), 3, gpu,
+        "textured_env.txt 2048x2048 depth 8")
+    recs["cornell_nee"] = chunk_config(
+        "cornell_nee", lambda: Renderer(nee_scene(SCENE, 800, 8, nee=True),
+                                        device="cuda", route="wavefront"),
+        4, gpu, "cornell.txt 800x800 depth 8 --nee (Philox draws)")
+    recs["manylights_restir"] = chunk_config(
+        "manylights_restir", lambda: Renderer(
+            nee_scene(MANY, 800, 5, seed=3, restir=8), device="cuda"), 4,
+        gpu, "manylights.txt 800x800 depth 5 --restir 8")
+    sdf = load_scene(os.path.join(ROOT, "scenes", "sdf.txt"))
+    recs["sdf"] = chunk_config(
+        "sdf", lambda: Renderer(sdf, device="cuda"), 3, gpu,
+        "sdf.txt 800x800 depth 8", k=2)
+    # two replans (iterations 8 and 16) inside the chunk; the timed runs
+    # cross the one at 24 in both forms
+    made = []  # (renderer, its replans' host ms): the eager one, the chunk
+
+    def adaptive():
+        r = Renderer(settings_of(cornell, stratified=True, adaptive=True,
+                                 adaptive_epoch=8), device="cuda")
+        made.append((r, timed_replans(r)))
+        return r
+    recs["cornell_adaptive"] = chunk_config(
+        "cornell_adaptive", adaptive, 20, gpu,
+        "cornell.txt 800x800 depth 8 --adaptive --adaptive-epoch 8 "
+        "--stratified", replans_in_chunk=2)
+    chunk_r, chunk_replans = made[1]
+    if len(chunk_replans) < 2 or not chunk_r._count.std() > 0:
+        raise AssertionError("chunk cornell_adaptive: replans "
+                             f"{chunk_replans}")
+
+    sharding.init_distributed("nccl")
+    try:
+        recs["sharded_mesh"] = chunk_config(
+            "sharded_mesh", lambda: sharding.ShardedRenderer(
+                settings_of(mesh_scene, stratified=True), device="cuda"), 4,
+            gpu, "mesh.txt 1024x1024 depth 8 --stratified, ShardedRenderer "
+            "world 1 (NCCL)")
+    finally:
+        sharding.shutdown()
+
+    # the preview over a wavefront render: an eager iteration, the capture
+    # and replays, one at a time under the server's lock
+    r = Renderer(settings_of(cornell), device="cuda", route="wavefront")
+    srv = PreviewServer(r, port=0).start()
+
+    def request(path, data=None) -> float:
+        """ms from the request to the end of the reply."""
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}", data=data,
+            method="POST" if data is not None else "GET")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            resp.read()
+        return (time.perf_counter() - t0) * 1e3
+    loop_iters = 24
+    try:
+        srv.step_many(4)
+        g = r.graph
+        loop = threading.Thread(target=srv.step_many, args=(loop_iters,))
+        loop.start()
+        while r.iteration < 12 and loop.is_alive():
+            time.sleep(0.001)
+        orbit_ms = request("/orbit?dphi=0.35&dtheta=-0.1&dzoom=-1.5", b"")
+        frame_ms = request("/frame.png")
+        orbit_during_loop = loop.is_alive()
+        loop.join()
+        ran = measured_launches(lambda: srv.step_many(4))
+    finally:
+        srv.stop()
+    fresh_scene = load_scene(SCENE)
+    fresh_scene.camera = copy.deepcopy(r.scene.camera)
+    fresh = Renderer(fresh_scene, device="cuda", route="wavefront")
+    for _ in range(r.iteration):
+        fresh.step()
+    if r.graph is not g or g.replays != 3 + loop_iters + 4:
+        raise AssertionError("preview: the orbit dropped the graph")
+    recs["preview_orbit"] = chunk_measure(
+        "preview_orbit", fresh, r, r.iteration, ran, 4, gpu,
+        "cornell.txt 800x800 depth 8 on the wavefront route, through the "
+        "preview after POST /orbit", orbit_ms=orbit_ms, frame_ms=frame_ms,
+        orbit_during_loop=orbit_during_loop)
+    out = {key: sum(v["launches"][key] for v in recs.values())
+           for key in CHUNK_KERNELS}
+    out["seconds"] = time.perf_counter() - t_start
+    log(json.dumps(dict(metric="chunk_summary", **out, gpu=gpu)))
+    return dict(out, records=recs)
 
 
 def app_phases(mesh_scene, outdir: str, gpu: str) -> dict:
@@ -3750,6 +4007,10 @@ def main() -> int:
     # sharding (slice G); the preview (slice H) -------------------------------
     app = app_phases(mesh_scene, args.outdir, gpu)
     mark("app")
+
+    # ---- 9g. the chunked render: replays of one captured iteration --------
+    chunk = chunk_phases(mesh_scene, args.outdir, gpu)
+    mark("chunk")
     # K2's launches over every path driven with the counts set to 0
     k2 = mesh[0]
     by_path = {"mesh": k2["launches"], "mesh --nee": k2.pop("nee_launches"),
@@ -3759,7 +4020,8 @@ def main() -> int:
                "mesh --adaptive": k2["adaptive_launches"],
                "mesh denoise G-buffer": k2["gbuffer_launches"],
                "textured_env train step": app["train"]["k2_launches"],
-               "mesh sharded, world 1": app["shard"]["k2_launches"]}
+               "mesh sharded, world 1": app["shard"]["k2_launches"],
+               "chunked renders (graph replays)": chunk["k2"]}
     k2.update(launches=sum(by_path.values()), launches_by_path=by_path,
               train_step_ms=[k["held_ms"] for k in app["train"]["k2"]])
 
@@ -3774,10 +4036,13 @@ def main() -> int:
     probe = probes[0]
     p1_train = app["train"]["p1"]
     probe.update(
-        launches=tex["launches"] + app["train"]["p1_launches"],
+        launches=(tex["launches"] + app["train"]["p1_launches"]
+                  + chunk["p1"]),
         launches_by_path={"textured_env": tex["launches"],
                           "textured_env train step":
-                              app["train"]["p1_launches"]},
+                              app["train"]["p1_launches"],
+                          "textured_env chunk (graph replays)":
+                              chunk["p1"]},
         train_step_ms=[b["value"] for b in p1_train],
         train_step_library_ms=[b["library_ms"] for b in p1_train],
         ms=p1["value"], cold_ms=p1["cold_ms"],

@@ -24,16 +24,24 @@ a tensor updated in place, so the loop steps under the server's lock
 (`step_many`), which the HTTP thread's frame copy and orbit take as well:
 a frame never shows a half-reset accumulator, and an orbit never lands
 inside a step. After an orbit the renderer's `reset()` repacks what caches
-the camera (K1's table on the megakernel route).
+the camera (K1's table on the megakernel route) and overwrites the camera
+tensors and the accumulator in place, so on the card's wavefront route the
+renderer's captured iteration (`Renderer.step_many`) replays on at the new
+camera. The lock is held for one iteration at a time, and on the card at
+most two iterations are queued on the device: the loop enqueues faster than
+the device renders (a replay is one launch), and a frame or an orbit waits
+for what is queued before it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlparse, parse_qs
 
 import numpy as np
+import torch
 
 from ..utils import image as img_io
 from .orbit import OrbitState
@@ -140,10 +148,19 @@ class PreviewServer:
                                        daemon=True)
 
     def step_many(self, n: int) -> None:
-        """`n` iterations of the renderer, each under the lock."""
+        """`n` iterations of the renderer, each under the lock
+        (`Renderer.step_many(1)`: a replay of its captured iteration on the
+        card's wavefront route). On the card the loop waits, outside the
+        lock, until at most two iterations are queued."""
+        queued = collections.deque()
         for _ in range(n):
             with self.lock:
-                self.renderer.step()
+                self.renderer.step_many(1)
+                if self.renderer.device.type == "cuda":
+                    queued.append(torch.cuda.Event())
+                    queued[-1].record()
+            if len(queued) > 1:
+                queued.popleft().synchronize()
 
     def start(self):
         self.thread.start()

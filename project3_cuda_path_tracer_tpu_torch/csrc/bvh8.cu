@@ -105,6 +105,9 @@ struct Params {
   int* pops;
   unsigned* counter;
   unsigned long long* stats;
+  // The launch tally, or null: the launch adds one to launches[0] and,
+  // in the any-hit mode, to launches[1] (utils/launches.py).
+  unsigned long long* launches;
 };
 
 // A lane's ray and its walk, kept in registers. Its stack: entries 0..S-1
@@ -233,6 +236,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   __shared__ int stack[S * THREADS];  // [S][THREADS]
   int* my = stack + threadIdx.x;
   if (threadIdx.x < 3) tally[threadIdx.x] = 0;
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(p.launches, 1ull);
+    if (ANY_HIT) atomicAdd(p.launches + 1, 1ull);
+  }
   __syncthreads();
 
   const unsigned lane = threadIdx.x & 31u;
@@ -323,7 +330,7 @@ Params make_params(const float* ox, const float* oy, const float* oz,
                    const float* dx, const float* dy, const float* dz,
                    const float* t_bound, int n, const float* nodes,
                    const float* tris, float* out, int* tri, int* pops,
-                   unsigned long long* stats) {
+                   unsigned long long* stats, unsigned long long* launches) {
   Params p;
   p.ox = ox;
   p.oy = oy;
@@ -340,6 +347,7 @@ Params make_params(const float* ox, const float* oy, const float* oz,
   p.pops = pops;
   p.counter = nullptr;
   p.stats = stats;
+  p.launches = launches;
   return p;
 }
 
@@ -372,11 +380,11 @@ extern "C" int bvh8_traverse(const float* ox, const float* oy,
                              const float* tris, int any_hit, float* out,
                              int* tri, int* pops, int blocks,
                              unsigned* counter, unsigned long long* stats,
-                             void* stream) {
+                             unsigned long long* launches, void* stream) {
   return launch_persistent(
       pick(0, any_hit),
       make_params(ox, oy, oz, dx, dy, dz, t_bound, n, nodes, tris, out, tri,
-                  pops, stats),
+                  pops, stats, launches),
       blocks, counter, stream);
 }
 
@@ -389,11 +397,12 @@ extern "C" int bvh8_traverse_tiny(const float* ox, const float* oy,
                                   const float* nodes, const float* tris,
                                   int any_hit, float* out, int* tri,
                                   int* pops, int blocks, unsigned* counter,
-                                  unsigned long long* stats, void* stream) {
+                                  unsigned long long* stats,
+                                  unsigned long long* launches, void* stream) {
   return launch_persistent(
       pick(2, any_hit),
       make_params(ox, oy, oz, dx, dy, dz, t_bound, n, nodes, tris, out, tri,
-                  pops, stats),
+                  pops, stats, launches),
       blocks, counter, stream);
 }
 
@@ -406,12 +415,13 @@ extern "C" int bvh8_traverse_grid(const float* ox, const float* oy,
                                   const float* nodes, const float* tris,
                                   int any_hit, float* out, int* tri,
                                   int* pops, unsigned long long* stats,
+                                  unsigned long long* launches,
                                   void* stream) {
   const KernelFn fn = pick(1, any_hit);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const Params p = make_params(ox, oy, oz, dx, dy, dz, t_bound, n, nodes,
-                               tris, out, tri, pops, stats);
+                               tris, out, tri, pops, stats, launches);
   fn<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -120,6 +120,9 @@ struct Params {
   int* steps;
   unsigned* counter;
   unsigned long long* stats;
+  // The launch tally, or null: the launch adds one to it
+  // (utils/launches.py).
+  unsigned long long* launches;
 };
 
 // A lane's ray and its walk, kept in registers: the next node `cur` (-1:
@@ -231,6 +234,8 @@ template <int SCHED>
 __global__ void __launch_bounds__(THREADS, min_blocks<SCHED>())
     binary_kernel(const __grid_constant__ Params p) {
   if (threadIdx.x < 2) tally[threadIdx.x] = 0;
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(p.launches, 1ull);
   __syncthreads();
 
   const unsigned lane = threadIdx.x & 31u;
@@ -379,7 +384,7 @@ extern "C" int bvh_binary_traverse(
     const float* dx, const float* dy, const float* dz, const float* t_bound,
     int n, const float* nodes, const float* tris, float* out, int* tri,
     int* steps, int blocks, unsigned* counter, unsigned long long* stats,
-    void* stream) {
+    unsigned long long* launches, void* stream) {
   const KernelFn fn = pick(instance);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
@@ -400,6 +405,7 @@ extern "C" int bvh_binary_traverse(
   p.steps = steps;
   p.counter = counter;
   p.stats = stats;
+  p.launches = launches;
   const int needed = (n + THREADS - 1) / THREADS;
   if (instance == GRID) {
     fn<<<needed, THREADS, 0, s>>>(p);

@@ -169,7 +169,11 @@ template <int K>
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const uint32_t* __restrict__ table, uint32_t size,
                   int table_aligned, const int32_t* __restrict__ idx,
-                  uint32_t* __restrict__ out, long long n, int idx_aligned) {
+                  uint32_t* __restrict__ out, long long n, int idx_aligned,
+                  unsigned long long* launches) {
+  // The launch tally, or null (utils/launches.py).
+  if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(launches, 1ull);
   extern __shared__ __align__(16) uint32_t tab_s[];
   __shared__ __align__(8) uint64_t bar;
   Table<K> t;
@@ -239,7 +243,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 typedef void (*KernelFn)(const uint32_t*, uint32_t, int, const int32_t*,
-                         uint32_t*, long long, int);
+                         uint32_t*, long long, int, unsigned long long*);
 
 KernelFn kernel_for(int k) {
   switch (k) {
@@ -315,7 +319,8 @@ extern "C" int gather_plan(int k, int table_size, int* out) {
 extern "C" int gather_launch(int k, int grid, const uint32_t* table,
                              int table_size, int table_aligned,
                              const int32_t* idx, uint32_t* out, long long n,
-                             int idx_aligned, void* stream) {
+                             int idx_aligned, unsigned long long* launches,
+                             void* stream) {
   KernelFn fn = kernel_for(k);
   if (fn == nullptr || table_size <= 0 || grid <= 0 || grid % (k > 1 ? k : 1))
     return cudaErrorInvalidValue;
@@ -334,7 +339,7 @@ extern "C" int gather_launch(int k, int grid, const uint32_t* table,
               static_cast<cudaStream_t>(stream));
   cudaError_t rc =
       cudaLaunchKernelEx(&cfg, fn, table, (uint32_t)table_size,
-                         table_aligned, idx, out, n, idx_aligned);
+                         table_aligned, idx, out, n, idx_aligned, launches);
   if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,9 @@ array, node and triangle rows read as 16-byte vectors.
 `traverse8_plain` (the same per-ray stack walk in torch ops), CUDA tensors
 launch the persistent kernel on the planes as they are (a plane is copied
 only if it is not contiguous), counted in LAUNCHES (and, in the occlusion
-mode that NEE's shadow rays take, also in LAUNCHES_ANY_HIT). Two more instances
+mode that NEE's shadow rays take, also in LAUNCHES_ANY_HIT); the kernel
+itself adds the launch to the card's `k2` (and `k2_any_hit`) tally
+(utils/launches.py), which CUDA graph replays reach too. Two more instances
 serve chip_smoke.py and tests/test_torch_cuda.py only (CUDA tensors only):
 `_traverse8_grid`, the first port's schedule, one thread per ray (the A/B
 and the bitwise check; counted in LAUNCHES_GRID), and `_traverse8_tiny`,
@@ -58,6 +60,7 @@ import torch
 from ..scene import types as T
 from ..utils import cuda_build
 from ..utils.device import stream_counter
+from ..utils.launches import tally_address
 from . import pallas_bvh as PB
 
 LAUNCHES = 0       # persistent launches (the renderer's schedule)
@@ -271,11 +274,11 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bvh8")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     persistent = ([ptr] * 7 + [i32] + [ptr] * 2 + [i32] + [ptr] * 3 + [i32]
-                  + [ptr] * 3)
+                  + [ptr] * 4)
     lib.bvh8_traverse.argtypes = persistent
     lib.bvh8_traverse_tiny.argtypes = persistent
     lib.bvh8_traverse_grid.argtypes = ([ptr] * 7 + [i32] + [ptr] * 2 + [i32]
-                                       + [ptr] * 5)
+                                       + [ptr] * 6)
     lib.bvh8_attributes.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
     for fn in (lib.bvh8_traverse, lib.bvh8_traverse_tiny,
                lib.bvh8_traverse_grid, lib.bvh8_attributes):
@@ -365,14 +368,17 @@ def _launch(instance: str, qo, qd, packed: PackedMesh8,
                    int(any_hit), out.data_ptr(), tri.data_ptr(),
                    pops.data_ptr() if pops is not None else None])
         st = stats.data_ptr() if stats is not None else None
+        # the route's instance adds its launches to the device tally
+        tally = (tally_address(dev, "k2") if instance == "persistent"
+                 else None)
         if instance == "grid":
-            rc = lib.bvh8_traverse_grid(*args, st, stream)
+            rc = lib.bvh8_traverse_grid(*args, st, tally, stream)
         else:
             fn = (lib.bvh8_traverse if instance == "persistent"
                   else lib.bvh8_traverse_tiny)
             blocks = _persistent_blocks(dev.index, instance, any_hit)
             counter = stream_counter(dev, stream)
-            rc = fn(*args, blocks, counter.data_ptr(), st, stream)
+            rc = fn(*args, blocks, counter.data_ptr(), st, tally, stream)
     PB.raise_on(rc, lib, "bvh8")
     if instance == "persistent":
         LAUNCHES += 1

@@ -29,7 +29,8 @@ as they are (a plane is copied only if it is not contiguous).
 K3 and K4); CUDA tensors launch K3's grid instance (LAUNCHES) or, with
 `sub_packets`, K4 (LAUNCHES_SUB). `_launch` reaches every instance (the
 persistent one counted in LAUNCHES_PERSISTENT), for chip_smoke.py and
-tests/test_torch_cuda.py only (CUDA tensors only).
+tests/test_torch_cuda.py only (CUDA tensors only). Every launch adds one
+to the card's `k3_k4` tally from the kernel itself (utils/launches.py).
 
 `pack_mesh` turns one mesh of a `MeshBundle` into the kernel's tables, bit
 for bit as the JAX package does:
@@ -60,6 +61,7 @@ from ..scene import types as T
 from ..scene.bvh import LEAF_K
 from ..utils import cuda_build
 from ..utils.device import stream_counter
+from ..utils.launches import tally_address
 
 LAUNCHES = 0             # K3 launches of the grid instance (the route's)
 LAUNCHES_PERSISTENT = 0  # K3 persistent-instance launches (the A/B only)
@@ -343,7 +345,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bvh_binary")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bvh_binary_traverse.argtypes = ([i32] + [ptr] * 7 + [i32]
-                                        + [ptr] * 5 + [i32] + [ptr] * 3)
+                                        + [ptr] * 5 + [i32] + [ptr] * 4)
     lib.bvh_binary_attributes.argtypes = [i32, ctypes.POINTER(i32)]
     for fn in (lib.bvh_binary_traverse, lib.bvh_binary_attributes):
         fn.restype = ctypes.c_int
@@ -429,7 +431,8 @@ def _launch(instance: str, qo, qd, packed: PackedMesh,
             tb.data_ptr() if tb is not None else None, n,
             packed.nodes.data_ptr(), packed.tris.data_ptr(), out.data_ptr(),
             tri.data_ptr(), steps.data_ptr() if steps is not None else None,
-            blocks, counter, stats.data_ptr() if stats is not None else None, stream)
+            blocks, counter, stats.data_ptr() if stats is not None else None,
+            tally_address(dev, "k3_k4"), stream)
     raise_on(rc, lib, "bvh_binary")
     if instance == "grid":
         LAUNCHES += 1

@@ -103,7 +103,9 @@ def sample_planes(iteration, depth: int, pixel_index: torch.Tensor,
     """`num_dims` stratified uniform planes for (iteration, depth, pixel):
     padded Owen-Sobol pairs, each index-shuffled and scrambled by seeds
     hashed from (pixel, depth, pair). The "sobol" implementation of
-    ops/wavefront.stratified_planes."""
+    ops/wavefront.stratified_planes. `iteration` is an int or a 0-dim
+    integer tensor on the pixels' device, which is used where it lies (a
+    captured iteration graph reads it at each replay)."""
     mix = _u32(pixel_index) ^ ((int(depth) * 0x9E3779B9) & _U32)
     it = _u32(torch.as_tensor(iteration, device=pixel_index.device)
               ).expand(pixel_index.shape)

@@ -128,7 +128,12 @@ def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
     bit for bit with the JAX `stratified_planes`: CP-rotated R_d lattices
     ("lattice"), or padded Owen-scrambled Sobol pairs ("sobol",
     ops/qmc.sample_planes). Both are keyed only on (iteration, depth,
-    pixel), so a permuted wavefront draws the same values."""
+    pixel), so a permuted wavefront draws the same values.
+
+    `iteration` is an int or a 0-dim integer tensor on the pixels' device
+    (the Renderer's, which a captured iteration graph reads at each
+    replay); both give the same bits. The lattice's constants are CPU
+    scalars, so the draw copies nothing from the host."""
     if impl == "sobol":
         return qmc.sample_planes(iteration, depth, pixel_index, num_dims,
                                  salt0)
@@ -136,11 +141,11 @@ def stratified_planes(iteration, depth: int, pixel_index: torch.Tensor,
         raise ValueError(f"stratified sampler must be one of {STRAT_IMPLS}, "
                          f"got {impl!r}")
     dev = pixel_index.device
-    it_f = torch.as_tensor(iteration, dtype=F32, device=dev)
+    it_f = torch.as_tensor(iteration, device=dev).to(F32)
     mix = (pixel_index.to(torch.int64) & _U32) ^ (
         (int(depth) * 0x9E3779B9) & _U32)
     return tuple(
-        torch.fmod(0.5 + it_f * torch.tensor(a, dtype=F32, device=dev)
+        torch.fmod(0.5 + it_f * torch.tensor(a, dtype=F32)
                    + _hash01(mix, salt0 + 101 * k), 1.0)
         for k, a in enumerate(_ALPHAS[num_dims][:num_dims]))
 
@@ -604,6 +609,18 @@ def _mesh_hit_packet(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
 # [K, N] block and keeps only the running (t_best, winner).
 SPHERE_BATCH_K = 16
 
+_INDEX_TENSORS = {}  # (indices, device) -> their int64 tensor
+
+
+def _index_tensor(idxs: Tuple[int, ...], dev) -> torch.Tensor:
+    """`idxs` as an int64 tensor on `dev`, copied from the host once per
+    tuple and device (a captured iteration may not copy from the host)."""
+    key = (idxs, str(dev))
+    if key not in _INDEX_TENSORS:
+        _INDEX_TENSORS[key] = torch.as_tensor(idxs, dtype=torch.int64,
+                                              device=dev)
+    return _INDEX_TENSORS[key]
+
 
 def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
                             geoms: T.Geoms, idxs: Sequence[int],
@@ -622,7 +639,7 @@ def _batched_spheres_planar(o: V3, d: V3, times: torch.Tensor,
     RAY_EPS object units (RAY_EPS * 2r in the world), interior hits flip
     the normal. With `tangents` the tangent is 0 (no lane reads it)."""
     dev = o.x.device
-    gi = torch.as_tensor(list(idxs), dtype=torch.int64, device=dev)
+    gi = _index_tensor(tuple(idxs), dev)
     tm = geoms.transform[gi]                              # [B,4,4]
     cx, cy, cz = tm[:, 0, 3], tm[:, 1, 3], tm[:, 2, 3]
     r = 0.5 * torch.sqrt(tm[:, 0, 0] * tm[:, 0, 0] + tm[:, 1, 0] * tm[:, 1, 0]

@@ -139,7 +139,12 @@ class ShardedRenderer(integ.Renderer):
 
     Adaptive sampling: each rank's paths stay in its row block
     (`adaptive.plan_epoch_sharded`), the replan gathers the statistics,
-    and every rank computes the same plan and takes its block."""
+    and every rank computes the same plan and takes its block.
+
+    On the card `step_many` replays one captured iteration of the rank's
+    rows (`integ.render_chunk`, the JAX `render_chunk_sharded`): a replan
+    and its gathers run on the host between replays, so no collective
+    runs inside the graph."""
 
     def __init__(self, scene: T.Scene, group=None,
                  settings: Optional[T.RenderSettings] = None,
@@ -167,66 +172,55 @@ class ShardedRenderer(integ.Renderer):
                                            ray_range=(lo * w, hi * w))
         self.reset()
 
-    def reset(self) -> None:
-        """Zero this rank's rows of the accumulator (and, adaptive, its
-        sums and counts; the plan goes back to the per-block identity)."""
-        if self.tables is not None:
-            mats, _, geoms, tex = self.tables
-            self.tables = (mats, self.scene.camera.flat(self.device), geoms,
-                           tex)
-        w, h = self.scene.camera.resolution
+    def _accum_rows(self) -> tuple:
+        """(rows, width) of this rank's accumulator: its row block."""
         lo, hi = self.rows
-        f32, dev = torch.float32, self.device
-        self.accum = torch.zeros((hi - lo, w, 3), dtype=f32, device=dev)
-        self.iteration = 0
-        self.reservoir = None
-        self._first_hit = None
-        self.accum2 = self._count = self._plan = None
-        if self.cfg.adaptive:
-            self.accum2 = torch.zeros((hi - lo, w), dtype=f32, device=dev)
-            self._count = torch.zeros((hi - lo, w), dtype=f32, device=dev)
-            self._set_full_plan(A.identity_plan_sharded(w, h, self.world))
-            self._next_replan = self.adaptive_epoch
+        return hi - lo, self.scene.camera.resolution[0]
+
+    def _identity_plan(self) -> None:
+        """The adaptive warm-up mapping: the per-block identity."""
+        w, h = self.scene.camera.resolution
+        self._set_full_plan(A.identity_plan_sharded(w, h, self.world))
 
     def _set_full_plan(self, plan) -> None:
-        """Keep the whole frame's plan (for checkpoints) and put this
-        rank's block of it on the device."""
+        """Keep the whole frame's plan (for checkpoints) and take this
+        rank's block of it into the fixed-size buffers the iteration
+        reads."""
         pix, surr, cimg = plan
         self._full_plan = (pix, surr, cimg)
         w = self.scene.camera.resolution[0]
         lo, hi = self.rows
         n = (hi - lo) * w
         sl = slice(self.rank * n, (self.rank + 1) * n)
-        self._plan = (pix[sl].to(self.device), surr[sl].to(self.device),
-                      torch.as_tensor(cimg[lo:hi]).to(self.device))
+        self._set_plan((pix[sl], surr[sl], cimg[lo:hi]))
 
-    def _generator(self, salt: int = 0) -> torch.Generator:
+    def _seed_of(self, salt: int) -> int:
         if not self.cfg.adaptive:
-            return super()._generator(salt)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(mk.seed32(self.seed ^ salt ^ (RANK_SALT * self.rank),
-                                  self.iteration))
-        return gen
+            return super()._seed_of(salt)
+        return mk.seed32(self.seed ^ salt ^ (RANK_SALT * self.rank),
+                         self.iteration)
 
-    def _step_adaptive(self) -> None:
+    def _replan(self) -> None:
+        """Every rank gathers the statistics and computes the same plan,
+        then takes its block (collective; on the host, between
+        iterations)."""
+        self._set_full_plan(A.plan_epoch_sharded(
+            gather_rows(self.accum, self.group).cpu().numpy(),
+            gather_rows(self.accum2, self.group).cpu().numpy(),
+            gather_rows(self._count, self.group).cpu().numpy(),
+            self.world))
+        self._next_replan = self.iteration + self.adaptive_epoch
+
+    def _iterate_adaptive(self, generator, light_gen) -> None:
         """One adaptive iteration over this rank's block of the plan: its
-        paths' pixels lie in its rows, so the scatter is local."""
-        if self.iteration >= self._next_replan:
-            self._set_full_plan(A.plan_epoch_sharded(
-                gather_rows(self.accum, self.group).cpu().numpy(),
-                gather_rows(self.accum2, self.group).cpu().numpy(),
-                gather_rows(self._count, self.group).cpu().numpy(),
-                self.world))
-            self._next_replan = self.iteration + self.adaptive_epoch
+        paths' pixels lie in its rows, so the scatter is local and no
+        collective runs (the iteration a graph captures)."""
         pix, surr, count_img = self._plan
         rad, pix = integ.trace_wavefront(
-            *self.tables, self.cfg,
-            generator=None if self.cfg.stratified else self._generator(),
-            iteration=self.iteration, packed_meshes=self.packed_meshes,
-            meshes=self.meshes,
-            light_gen=(self._generator(integ.LIGHT_SALT) if self.cfg.nee
-                       else None),
-            pix_override=pix, samp_index=surr)
+            *self.tables, self.cfg, generator=generator,
+            iteration=self._it_t, packed_meshes=self.packed_meshes,
+            meshes=self.meshes, light_gen=light_gen, pix_override=pix,
+            samp_index=surr)
         local = pix - self.rows[0] * self.cfg.width
         self.accum.view(-1, 3).index_put_(
             (local,), torch.stack(tuple(rad), dim=-1), accumulate=True)
@@ -279,17 +273,19 @@ class ShardedRenderer(integ.Renderer):
                     next_replan=np.int64(self._next_replan))
 
     def restore_extras(self, extras: dict) -> None:
+        """The whole frame's adaptive state: this rank's rows of it into
+        its buffers, in place."""
         if not self.cfg.adaptive:
             return
         if "accum2" not in extras:
             raise ValueError("checkpoint has no adaptive state; resume "
                              "without --adaptive or re-render")
         lo, hi = self.rows
-        dev = self.device
-        self.accum2 = torch.as_tensor(extras["accum2"][lo:hi],
-                                      dtype=torch.float32).to(dev)
-        self._count = torch.as_tensor(extras["count"][lo:hi],
-                                      dtype=torch.float32).to(dev)
+        f32 = torch.float32
+        self.accum2 = self._into(self.accum2, torch.as_tensor(
+            extras["accum2"][lo:hi], dtype=f32))
+        self._count = self._into(self._count, torch.as_tensor(
+            extras["count"][lo:hi], dtype=f32))
         self._set_full_plan((torch.as_tensor(extras["plan_pix"]),
                              torch.as_tensor(extras["plan_surr"]),
                              np.asarray(extras["plan_cimg"], np.float32)))

@@ -35,7 +35,9 @@ per-sample clamp and the first-bounce cache (`Renderer`). Slice F, the
 render services: adaptive sampling (`TraceConfig.adaptive`, the path->pixel
 override of `trace_wavefront`, render/adaptive.py), the checkpoint extras
 (render/checkpoint.py) and the denoised image (render/denoise.py), in
-`Renderer`.
+`Renderer`. Slice I, device-resident chunks: on the card `step_many`
+replays one captured CUDA graph of a wavefront iteration (`render_chunk`,
+the JAX `render_chunk`'s counterpart), bit for bit the eager steps.
 """
 from __future__ import annotations
 
@@ -58,7 +60,9 @@ from ..ops.vec import V3
 from ..scene import parser
 from ..scene import types as T
 from ..utils import image as img_io
-from ..utils.device import resolve_device, synchronize
+from ..utils.device import (CapturedGraph, capture_graph, resolve_device,
+                            synchronize)
+from ..utils.launches import launch_counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -684,7 +688,8 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
         if nee:
             prev_pdf = out.nee_pdf if out.nee_pdf is not None else zeros
     if cfg.clamp > 0:
-        c = torch.tensor(cfg.clamp, dtype=torch.float32, device=dev)
+        # a CPU scalar: the kernel takes its value, nothing is copied
+        c = torch.tensor(cfg.clamp, dtype=torch.float32)
         rad = V3(*(torch.minimum(r, c) for r in rad))
     if reservoir is not None:
         return rad, new_res
@@ -781,6 +786,49 @@ def _first_hit_of(cam: dict, geoms: T.Geoms, cfg: TraceConfig,
                                packed_meshes, cfg.mesh_ids, meshes=meshes,
                                sphere_batch=cfg.sphere_batch,
                                tangents=cfg.nmap, sdf_kinds=cfg.sdf_kinds)
+
+
+def render_chunk(renderer: "Renderer", n: int) -> None:
+    """`n` iterations of a chunkable Renderer (`Renderer.chunkable`), the
+    counterpart of the JAX `render_chunk` (which scans a chunk of
+    iterations in one device program; `_restir_chunk` and the adaptive
+    chunk are the same here, as the reservoir, the adaptive sums and the
+    plan are buffers the iteration updates in place): each iteration is a
+    replay of one captured CUDA graph of `Renderer._iterate`. Before a
+    replay the host does only what changes between iterations
+    (`_prepare`: the replan at an adaptive epoch boundary, so no replay
+    crosses a replan, and the iteration index; `_draws`: the persistent
+    generators reseeded). The result is bit for bit that of `n` step()
+    calls.
+
+    The first iteration a Renderer takes runs eagerly (`step()`, which
+    builds every lazy table, launch plan and kernel library); the first
+    call after it captures the next iteration and replays it, whatever
+    its n: no iteration is spent on a warm-up. One iteration is captured,
+    not a chunk: the generators' seeds are host hashes of (seed,
+    iteration), so a graph of several iterations could not reseed between
+    them. A capture or replay that fails raises; nothing falls back to the
+    loop of steps."""
+    r = renderer
+    if r._graph is None and n > 0:
+        if not r._warm:
+            r.step()
+            n -= 1
+        if n > 0:
+            r._capture()
+    for _ in range(n):
+        r._prepare()
+        r._draws()
+        r._graph.replay()
+        r.iteration += 1
+
+
+def same_state(a: "Renderer", b: "Renderer") -> bool:
+    """Whether two Renderers took as many iterations and hold the same
+    `state()` bit for bit."""
+    sa, sb = a.state(), b.state()
+    return (a.iteration == b.iteration and set(sa) == set(sb)
+            and all(torch.equal(sa[k], sb[k]) for k in sa))
 
 
 def _megakernel_lacks(cfg: TraceConfig, settings: T.RenderSettings) -> bool:
@@ -924,7 +972,14 @@ class Renderer:
 
     A new camera (the preview's orbit, app/orbit.py): change
     `scene.camera`, then call `reset()`, which repacks what caches the
-    camera as well as zeroing the accumulation."""
+    camera as well as zeroing the accumulation.
+
+    Slice I: `step()` is one eager iteration; on the card `step_many` (and
+    so `render`) replays one captured iteration of the wavefront route
+    (`render_chunk`), whose iteration index (`_it_t`) and generators
+    (`_gens`, reseeded each iteration) are persistent device state and
+    whose buffers `reset`, `restore_extras` and the replans overwrite in
+    place. `chunkable()` is the rule; `graph` the capture."""
 
     def __init__(self, scene: T.Scene,
                  settings: Optional[T.RenderSettings] = None,
@@ -964,6 +1019,12 @@ class Renderer:
             self.cfg = dataclasses.replace(self.cfg, restir=False)
         announce_drops(self.drops)
         self.tables = self.packed_meshes = self.meshes = None
+        self._plan = None
+        self._gens = {}
+        self._graph = None
+        self._warm = False  # an eager wavefront iteration has run
+        # the iteration index a wavefront iteration reads (`_prepare`)
+        self._it_t = torch.zeros((), dtype=torch.int64, device=self.device)
         if (route is None and mk.supports(scene) and not self.cfg.nee
                 and not _megakernel_lacks(self.cfg, st)):
             self.route = "megakernel"
@@ -995,40 +1056,89 @@ class Renderer:
         `scene.camera` (any camera change resets accumulation, as in the
         reference, src/main.cpp:102-120): K1's scene table, the wavefront's
         camera tensors, the first-bounce cache and the cost proxy are
-        rebuilt from it."""
+        rebuilt from it.
+
+        The buffers an iteration reads and writes (the camera tensors, the
+        accumulator, the reservoir, the adaptive sums, counts and plan) are
+        overwritten in place, so a captured iteration (`render_chunk`)
+        keeps reading them."""
         if self.route == "megakernel":
             self.table = mk.pack_scene(self.scene, self.device)
         if self.tables is not None:
-            mats, _, geoms, tex = self.tables
-            self.tables = (mats, self.scene.camera.flat(self.device), geoms,
-                           tex)
+            mats, cam, geoms, tex = self.tables
+            new = self.scene.camera.flat(self.device)
+            self.tables = (mats, {k: self._into(cam.get(k), v)
+                                  for k, v in new.items()}, geoms, tex)
         self._cost = None
-        w, h = self.scene.camera.resolution
-        self.accum = torch.zeros((h, w, 3), dtype=torch.float32,
-                                 device=self.device)
+        h, w = self._accum_rows()
+        dev, f32 = self.device, torch.float32
+        self.accum = self._into(getattr(self, "accum", None),
+                                torch.zeros((h, w, 3), dtype=f32, device=dev))
         self.iteration = 0
-        self.reservoir = (init_reservoir(w * h, self.device)
-                          if self.cfg.restir else None)
+        if self.cfg.restir:
+            old = getattr(self, "reservoir", None) or {}
+            self.reservoir = {k: self._into(old.get(k), v) for k, v in
+                              init_reservoir(w * h, dev).items()}
+        else:
+            self.reservoir = None
         self._first_hit = None
-        self.accum2 = self._count = self._plan = None
         if self.cfg.adaptive:
-            from . import adaptive as A
-            self.accum2 = torch.zeros((h, w), dtype=torch.float32,
-                                      device=self.device)
-            self._count = torch.zeros((h, w), dtype=torch.float32,
-                                      device=self.device)
-            self._set_plan(A.identity_plan(w, h))
-            if self._cost is None:
-                self._cost = A.cost_proxy_image(self.scene, w, h)
+            self.accum2 = self._into(getattr(self, "accum2", None),
+                                     torch.zeros((h, w), dtype=f32,
+                                                 device=dev))
+            self._count = self._into(getattr(self, "_count", None),
+                                     torch.zeros((h, w), dtype=f32,
+                                                 device=dev))
+            self._identity_plan()
             self._next_replan = self.adaptive_epoch
+        else:
+            self.accum2 = self._count = self._plan = None
+
+    def _accum_rows(self) -> Tuple[int, int]:
+        """(rows, width) of this process's accumulator: the whole frame."""
+        w, h = self.scene.camera.resolution
+        return h, w
+
+    def _identity_plan(self) -> None:
+        """The adaptive warm-up mapping and the cost proxy."""
+        from . import adaptive as A
+        w, h = self.scene.camera.resolution
+        self._set_plan(A.identity_plan(w, h))
+        self._cost = A.cost_proxy_image(self.scene, w, h)
+
+    def _into(self, old: Optional[torch.Tensor],
+              new: torch.Tensor) -> torch.Tensor:
+        """`new`'s values in the Renderer's buffer `old`, in place (a
+        captured iteration keeps reading `old`), or a copy of `new` on the
+        device where there is no buffer yet. A value of another shape or
+        dtype raises: another frame size needs a new Renderer."""
+        if old is None:
+            return new.to(device=self.device, copy=True)
+        if old.shape != new.shape or old.dtype != new.dtype:
+            raise ValueError(f"a {tuple(new.shape)} {new.dtype} value for "
+                             f"a {tuple(old.shape)} {old.dtype} buffer: "
+                             "another frame size needs a new Renderer")
+        return old.copy_(new)
+
+    def _fixed_camera_rays(self) -> bool:
+        """Whether the camera rays are the same every iteration (no AA,
+        aperture, shutter or adaptive mapping): the cache's condition."""
+        cam = self.scene.camera
+        return not (self.cfg.antialias or cam.aperture > 0
+                    or cam.shutter > 0 or self.cfg.adaptive)
+
+    def _cache_active(self) -> bool:
+        """Whether steps reuse the first-bounce cache: the setting on, no
+        ReSTIR reservoir (it needs the identity path order) and fixed
+        camera rays."""
+        return bool(self.settings.first_bounce_cache
+                    and self.reservoir is None and self._fixed_camera_rays())
 
     def _cached_first_hit(self) -> Optional[wf.HitP]:
         """The first-bounce cache (the JAX `_cached_first_hit`): the depth-0
         hits, built at the first step that asks, or None where the camera
         rays change between iterations (AA, an aperture, a shutter)."""
-        cam = self.scene.camera
-        if (self.cfg.antialias or cam.aperture > 0 or cam.shutter > 0
-                or self.cfg.adaptive):  # adaptive: the mapping varies
+        if not self._fixed_camera_rays():
             return None
         if self._first_hit is None:
             _, cam_t, geoms, _ = self.tables
@@ -1036,50 +1146,128 @@ class Renderer:
                                             self.packed_meshes, self.meshes)
         return self._first_hit
 
+    def _seed_of(self, salt: int) -> int:
+        """The seed of the current iteration's generator of `salt`."""
+        return mk.seed32(self.seed ^ salt, self.iteration)
+
     def _generator(self, salt: int = 0) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(mk.seed32(self.seed ^ salt, self.iteration))
+        """The Renderer's persistent generator of `salt` on its device,
+        reseeded for the current iteration, so it draws what a fresh
+        generator of that seed draws. A captured iteration, with which it
+        is registered, reads its seed and offset at each replay."""
+        gen = self._gens.get(salt)
+        if gen is None:
+            gen = self._gens[salt] = torch.Generator(device=self.device)
+        gen.manual_seed(self._seed_of(salt))
         return gen
 
+    def _draws(self) -> tuple:
+        """The current iteration's generators, reseeded: (camera and BSDF
+        draws, None when stratified; light draws, None without NEE)."""
+        return (None if self.cfg.stratified else self._generator(),
+                self._generator(LIGHT_SALT) if self.cfg.nee else None)
+
+    def _prepare(self) -> None:
+        """The host's part of a wavefront iteration: the replan at an
+        adaptive epoch boundary, then the iteration index into the device
+        tensor `_it_t` that the iteration reads."""
+        if self.cfg.adaptive and self.iteration >= self._next_replan:
+            self._replan()
+        self._it_t.fill_(self.iteration)
+
+    def _iterate(self, generator: Optional[torch.Generator],
+                 light_gen: Optional[torch.Generator]) -> None:
+        """One wavefront iteration at the index in `_it_t`, drawn from the
+        given generators, added into the accumulator (and the reservoir,
+        or the adaptive sums and counts): the body that `step()` runs
+        eagerly and `render_chunk` captures and replays. It reads and
+        writes the Renderer's buffers in place and makes no host round
+        trip."""
+        if self.cfg.adaptive:
+            self._iterate_adaptive(generator, light_gen)
+            return
+        out = trace_wavefront(
+            *self.tables, self.cfg, generator=generator,
+            iteration=self._it_t, packed_meshes=self.packed_meshes,
+            meshes=self.meshes, light_gen=light_gen,
+            reservoir=self.reservoir,
+            first_hit=self._cached_first_hit() if self._cache_active()
+            else None)
+        if self.reservoir is not None:
+            out, stored = out
+            for k, v in stored.items():
+                self.reservoir[k].copy_(v)
+        self.accum.add_(to_image(out, self.cfg))
+
     def step(self) -> None:
-        """One progressive iteration (one sample per pixel)."""
+        """One progressive iteration (one sample per pixel), eagerly."""
         if self.route == "megakernel":
             mk.iteration(self.accum, self.table, self.cfg, self.iteration,
                          self.seed, self.sampler)
-        elif self.cfg.adaptive:
-            self._step_adaptive()
         else:
-            # ReSTIR's reservoir needs the identity path order: no cache
-            cache = (self.settings.first_bounce_cache
-                     and self.reservoir is None)
-            out = trace_wavefront(
-                *self.tables, self.cfg,
-                generator=None if self.cfg.stratified else self._generator(),
-                iteration=self.iteration, packed_meshes=self.packed_meshes,
-                meshes=self.meshes,
-                light_gen=(self._generator(LIGHT_SALT) if self.cfg.nee
-                           else None),
-                reservoir=self.reservoir,
-                first_hit=self._cached_first_hit() if cache else None)
-            if self.reservoir is not None:
-                out, self.reservoir = out
-            self.accum.add_(to_image(out, self.cfg))
+            self._prepare()
+            self._iterate(*self._draws())
+            self._warm = True
         self.iteration += 1
 
+    def chunkable(self) -> bool:
+        """Whether `step_many` on the card replays a captured iteration
+        (`render_chunk`): the wavefront route, unless the first-bounce
+        cache is active (the JAX `chunkable` rule). The megakernel route
+        stays a loop of steps: K1 is one launch an iteration, and its step
+        already takes the kernel's time (PERF.md section 5)."""
+        return self.route == "wavefront" and not self._cache_active()
+
     def step_many(self, n: int) -> None:
-        for _ in range(n):
-            self.step()
+        """`n` iterations: on the card, replays of one captured iteration
+        where `chunkable` (`render_chunk`), bit for bit `n` step() calls;
+        else those calls (CPU tensors never capture)."""
+        if self.device.type == "cuda" and self.chunkable():
+            render_chunk(self, n)
+        else:
+            for _ in range(n):
+                self.step()
+
+    def _capture(self) -> None:
+        """Capture `_iterate` with the persistent generators registered."""
+        gens = self._draws()
+        self._graph = capture_graph(
+            lambda: self._iterate(*gens), self.device,
+            generators=[g for g in gens if g is not None],
+            counters=launch_counts)
+
+    @property
+    def graph(self) -> Optional[CapturedGraph]:
+        """The captured iteration (its launches, capture and instantiate
+        seconds, pool bytes and replays), or None."""
+        return self._graph
+
+    def state(self) -> dict:
+        """What the iterations accumulated, by name: the accumulator, the
+        ReSTIR reservoir's planes (`res_<plane>`), the adaptive sums and
+        counts. A chunk leaves it bit for bit as the eager steps do
+        (`same_state`)."""
+        out = {"accum": self.accum}
+        out.update({"res_" + k: v for k, v in (self.reservoir or {}).items()})
+        if self.cfg.adaptive:
+            out.update(accum2=self.accum2, count=self._count)
+        return out
 
     @property
     def adaptive_epoch(self) -> int:
         return max(1, int(self.settings.adaptive_epoch))
 
     def _set_plan(self, plan) -> None:
+        """Take a plan (pix, surrogates, count image) into the fixed-size
+        buffers the iteration reads: W*H paths and an [H,W] count image,
+        whatever the plan, so a captured iteration keeps reading them."""
         pix, surr, count_img = plan
-        dev = self.device
-        self._plan = (torch.as_tensor(pix, dtype=torch.int64).to(dev),
-                      torch.as_tensor(surr, dtype=torch.int64).to(dev),
-                      torch.as_tensor(count_img, dtype=torch.float32).to(dev))
+        old = self._plan or (None, None, None)
+        self._plan = (
+            self._into(old[0], torch.as_tensor(pix, dtype=torch.int64)),
+            self._into(old[1], torch.as_tensor(surr, dtype=torch.int64)),
+            self._into(old[2], torch.as_tensor(count_img,
+                                               dtype=torch.float32)))
 
     def _replan(self) -> None:
         """The next epoch's mapping from the device's error image (one [H,W]
@@ -1089,22 +1277,17 @@ class Renderer:
         self._set_plan(A.plan_from_err(err.cpu().numpy(), cost=self._cost))
         self._next_replan = self.iteration + self.adaptive_epoch
 
-    def _step_adaptive(self) -> None:
-        """One adaptive iteration: replan at an epoch boundary, trace W*H
-        paths under the plan (`adaptive.render_radiance_adaptive`), add
-        their radiance and luminance^2 images and the plan's counts."""
+    def _iterate_adaptive(self, generator, light_gen) -> None:
+        """One adaptive iteration under the current plan: W*H paths
+        (`adaptive.render_radiance_adaptive`), their radiance and
+        luminance^2 images and the plan's counts added in place."""
         from . import adaptive as A
-        if self.iteration >= self._next_replan:
-            self._replan()
         pix, surr, count_img = self._plan
         img, lum2 = A.render_radiance_adaptive(
-            *self.tables, self.cfg,
-            generator=None if self.cfg.stratified else self._generator(),
-            iteration=self.iteration, packed_meshes=self.packed_meshes,
-            meshes=self.meshes,
-            light_gen=(self._generator(LIGHT_SALT) if self.cfg.nee
-                       else None),
-            pix_override=pix, samp_index=surr)
+            *self.tables, self.cfg, generator=generator,
+            iteration=self._it_t, packed_meshes=self.packed_meshes,
+            meshes=self.meshes, light_gen=light_gen, pix_override=pix,
+            samp_index=surr)
         self.accum.add_(img)
         self.accum2.add_(lum2)
         self._count.add_(count_img)
@@ -1136,28 +1319,29 @@ class Renderer:
                     next_replan=np.int64(self._next_replan))
 
     def restore_extras(self, extras: dict) -> None:
-        """The inverse of `checkpoint_extras`; raises ValueError when the
-        checkpoint lacks the state this renderer's mode needs."""
-        dev = self.device
+        """The inverse of `checkpoint_extras`, into the Renderer's buffers
+        in place; raises ValueError when the checkpoint lacks the state
+        this renderer's mode needs."""
+        f32 = torch.float32
         if self.reservoir is not None:
             missing = [k for k in self.reservoir if "res_" + k not in extras]
             if missing:
                 raise ValueError("checkpoint has no restir reservoir state; "
                                  "resume without --restir or re-render")
             self.reservoir = {
-                k: torch.as_tensor(extras["res_" + k],
-                                   dtype=torch.float32).to(dev)
-                for k in self.reservoir}
+                k: self._into(v, torch.as_tensor(extras["res_" + k],
+                                                 dtype=f32))
+                for k, v in self.reservoir.items()}
             return
         if not self.cfg.adaptive:
             return
         if "accum2" not in extras:
             raise ValueError("checkpoint has no adaptive state; resume "
                              "without --adaptive or re-render")
-        self.accum2 = torch.as_tensor(extras["accum2"],
-                                      dtype=torch.float32).to(dev)
-        self._count = torch.as_tensor(extras["count"],
-                                      dtype=torch.float32).to(dev)
+        self.accum2 = self._into(self.accum2, torch.as_tensor(
+            extras["accum2"], dtype=f32))
+        self._count = self._into(self._count, torch.as_tensor(
+            extras["count"], dtype=f32))
         self._set_plan((extras["plan_pix"], extras["plan_surr"],
                         extras["plan_cimg"]))
         self._next_replan = int(extras["next_replan"])

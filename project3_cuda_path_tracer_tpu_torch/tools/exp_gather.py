@@ -26,12 +26,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..utils import cuda_build
 from ..utils.device import time_ms
+from ..utils.launches import tally_address
 
 N = 1 << 22          # 4M fetches (one 2048x2048 bounce)
 SIDES = (128, 256)   # atlas sides
@@ -88,7 +90,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.gather_plan.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.gather_launch.restype = i32
     lib.gather_launch.argtypes = [i32, i32, ptr, i32, i32, ptr, ptr,
-                                  ctypes.c_longlong, i32, ptr]
+                                  ctypes.c_longlong, i32, ptr, ptr]
     lib.gather_error_string.restype = ctypes.c_char_p
     lib.gather_error_string.argtypes = [i32]
     return lib
@@ -112,8 +114,10 @@ def plan(device_index: int, k: int, texels: int) -> tuple:
     return out[0], out[1]
 
 
-def _launch(k: int, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Instance k of csrc/gather.cu on the current stream."""
+def _launch(k: int, table: torch.Tensor, idx: torch.Tensor,
+            launches: Optional[int] = None) -> torch.Tensor:
+    """Instance k of csrc/gather.cu on the current stream; `launches`, the
+    address of a device tally the kernel adds one to, or None."""
     if slice_bytes(table.numel(), k) > SLICE_BYTES:
         raise ValueError(f"a {table.numel() * 4}-byte table does not fit "
                          f"instance {INSTANCES[k]}")
@@ -123,7 +127,7 @@ def _launch(k: int, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         rc = _kernel_lib().gather_launch(
             k, grid, table.data_ptr(), table.numel(),
             int(table.data_ptr() % 16 == 0), idx.data_ptr(), out.data_ptr(),
-            idx.numel(), int(idx.data_ptr() % 16 == 0),
+            idx.numel(), int(idx.data_ptr() % 16 == 0), launches,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, f"{INSTANCES[k]} launch")
     return out
@@ -138,14 +142,15 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] for a flat 32-bit table and int32 indices of any shape.
     CPU tensors take `gather_plain`; CUDA tensors launch csrc/gather.cu on
     the current stream, the instance that `instance_for` picks for the
-    table's size (counted in LAUNCHES), where an index outside the table
-    reads 0."""
+    table's size (counted in LAUNCHES, and on the card in the `p1` tally
+    of utils/launches.py), where an index outside the table reads 0."""
     global LAUNCHES
     _check(table, idx)
     if table.device.type == "cpu":
         return gather_plain(table, idx)
     _need_cuda(table)
-    out = _launch(instance_for(table.numel() * 4), table, idx)
+    out = _launch(instance_for(table.numel() * 4), table, idx,
+                  tally_address(table.device, "p1"))
     LAUNCHES += 1
     return out
 

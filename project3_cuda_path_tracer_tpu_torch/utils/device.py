@@ -1,6 +1,10 @@
 """Device resolution (the caller names the device, nothing is picked for
-it), and timing on the card."""
+it), timing on the card, and the capture of one iteration as a CUDA
+graph."""
 from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -25,11 +29,111 @@ def stream_counter(device: torch.device, stream: int) -> torch.Tensor:
     """4 bytes of scratch for a persistent kernel's work counter, one per
     device and stream (K1 and K2 share it: their C entry points zero it on
     the stream before each launch, and a stream runs one launch at a
-    time)."""
+    time). Under a capture that zeroing is a memset node of the graph; the
+    capture stream's counter is made before the capture (`capture_graph`),
+    so it lives outside the graph's pool. Every graph captured on a device
+    uses that one counter, so graphs replay one after another on one
+    stream, never concurrently."""
     key = (device.index, stream)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.empty((1,), dtype=torch.int32, device=device)
     return _COUNTERS[key]
+
+
+_CAPTURE_STREAMS = {}  # device index -> the side stream captures run on
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream on which `capture_graph` captures for `device`."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return _CAPTURE_STREAMS[idx]
+
+
+class CapturedGraph:
+    """One captured CUDA graph with what its capture measured.
+
+    `launches` holds, for each kernel counter passed to `capture_graph`,
+    the launches the capture recorded: the wrappers count a launch when
+    they enqueue it, which under a capture happens once, while every
+    `replay()` runs them again without a wrapper call: `launches` is what
+    a replay is expected to launch, and the kernels' device tallies
+    (`utils.launches.device_launches`) count what ran.
+    `capture_s` and `instantiate_s` are host seconds, `pool_bytes` the
+    device memory the graph's private pool holds."""
+
+    def __init__(self, graph, launches: Dict[str, int], capture_s: float,
+                 instantiate_s: float, pool_bytes: int):
+        self.graph = graph
+        self.launches = launches
+        self.capture_s = capture_s
+        self.instantiate_s = instantiate_s
+        self.pool_bytes = pool_bytes
+        self.replays = 0
+
+    def replay(self) -> None:
+        """Launch the graph on the current stream."""
+        self.graph.replay()
+        self.replays += 1
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of the segments the caching allocator holds for `pool`."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def capture_graph(fn: Callable[[], None], device: torch.device,
+                  generators: Sequence[torch.Generator] = (),
+                  counters: Optional[Callable[[], Dict[str, int]]] = None
+                  ) -> CapturedGraph:
+    """Capture `fn()` as a CUDA graph on `device`'s side stream.
+
+    `fn` must already have run once eagerly with the same shapes (that run
+    builds the lazy tables, the kernels' libraries and their launch plans),
+    and it must make no host round trip: a sync, a host-to-device copy or
+    a value read on the host makes the capture fail, and the error is
+    raised here. Every generator that `fn` draws from is registered with
+    the graph, so each replay reads the generator's seed and offset as
+    they stand at the replay (reseed with `manual_seed` before it).
+    `counters()` returns the kernel wrappers' launch counters; their
+    increase during the capture is the graph's `launches`. The kernels'
+    scratch (`stream_counter`) and launch tally (`utils.launches`) are
+    made before the capture, outside the graph's pool. The graph keeps
+    its private memory pool, which is released with it."""
+    from .launches import device_tally
+    stream = capture_stream(device)
+    stream_counter(device, stream.cuda_stream)
+    device_tally(device)
+    # keep_graph: instantiate apart from the capture, to time each
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = dict(counters()) if counters is not None else {}
+    torch.cuda.synchronize(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    t0 = time.perf_counter()
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture was already invalidated by fn's error
+            raise
+        graph.capture_end()
+    t1 = time.perf_counter()
+    graph.instantiate()
+    torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    after = dict(counters()) if counters is not None else {}
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    return CapturedGraph(graph, launches, t1 - t0, t2 - t1,
+                         _pool_bytes(graph.pool()))
 
 
 def synchronize(device: torch.device) -> None:

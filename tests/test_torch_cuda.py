@@ -9,7 +9,11 @@ the card against the CPU, K2 on a sorted and compacted wavefront with
 the sorted render against the unsorted one (slice E), and the render
 services (slice F): K2 on an adaptive wavefront, an adaptive iteration
 against the CPU, and resumed renders (adaptive, K1, ReSTIR) against
-uninterrupted ones. Every test here
+uninterrupted ones; and the chunked render (`Renderer.step_many` replaying
+one captured iteration): replays against the eager loop with K2 (nearest
+and any-hit), K3 and P1 in the graph and through the sharded renderer,
+replays after reset() and restore_extras, and a failing capture that
+raises. Every test here
 is `cuda`-marked and skips without a card. The file imports neither JAX
 nor the JAX package, so it runs where they are absent:
 
@@ -31,11 +35,12 @@ from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
 from project3_cuda_path_tracer_tpu_torch.ops import texfetch
-from project3_cuda_path_tracer_tpu_torch.render.integrator import \
-    build_trace_config
+from project3_cuda_path_tracer_tpu_torch.render.integrator import (
+    build_trace_config, same_state)
 from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
 from project3_cuda_path_tracer_tpu_torch.tools import exp_extract_cost as P2
 from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+from project3_cuda_path_tracer_tpu_torch.utils import launches
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(REPO, "scenes")
@@ -805,3 +810,157 @@ def test_resume_is_bitwise_on_card(settings):
     whole, resumed = _split(make, 6, 3)
     assert whole.route == ("wavefront" if settings else "megakernel")
     assert torch.equal(whole.accum, resumed.accum)
+
+
+def _textured(res: int):
+    scene = load_scene(os.path.join(SCENES, "textured_env.txt"))
+    scene.camera.resolution = (res, res)
+    scene.camera.derive()
+    scene.settings.trace_depth = 4
+    return scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["torus_k2", "textured_p1", "torus_nee_k2",
+                                  "torus_binary_k3", "sharded_adaptive"])
+def test_graph_replay_equals_eager_loop_on_card(case, tmp_path):
+    """step_many(n) on the wavefront route (one eager iteration, a capture,
+    n - 1 replays) against n eager step() calls: the state bit for bit
+    (`same_state`); the kernels' device tallies count the eager launches
+    and each replay's; the graph holds the kernels: K2 on the torus room (4
+    launches a replay at depth 4), with NEE its any-hit shadow rays too, K3
+    on the room's binary tree, P1 on textured_env's texel fetches; the
+    sharded renderer (a world of one) across adaptive replans."""
+    _need_card()
+    import dataclasses
+
+    from project3_cuda_path_tracer_tpu_torch.parallel import sharding
+    n = 8 if case == "sharded_adaptive" else 5
+
+    def make():
+        if case == "torus_k2":
+            return Renderer(_torus_room(tmp_path, 64), device="cuda")
+        if case == "torus_nee_k2":
+            return Renderer(_torus_room(tmp_path, 64, nee=True),
+                            device="cuda")
+        if case == "torus_binary_k3":
+            scene = _torus_room(tmp_path, 64)
+            return Renderer(dataclasses.replace(
+                scene, packed_meshes=PPB.pack_all(scene.meshes)),
+                device="cuda")
+        if case == "sharded_adaptive":
+            scene = _cornell(64)
+            scene.settings.trace_depth = 4
+            scene.settings.adaptive = scene.settings.stratified = True
+            scene.settings.adaptive_epoch = 3
+            return sharding.ShardedRenderer(scene, device="cuda")
+        return Renderer(_textured(64), device="cuda")
+    if case == "sharded_adaptive":
+        sharding.init_distributed("nccl")
+    try:
+        eager, chunk = make(), make()
+        assert chunk.route == "wavefront" and chunk.chunkable()
+        replans, replan = [], chunk._replan
+
+        def counted():
+            replans.append(chunk.iteration)
+            replan()
+        chunk._replan = counted
+        for _ in range(n):
+            eager.step()
+        launches.zero_launch_counts()
+        chunk.step_many(n)
+        torch.cuda.synchronize()
+    finally:
+        sharding.shutdown()
+    assert same_state(eager, chunk)
+    g = chunk.graph
+    assert g is not None and g.replays == n - 1 and g.pool_bytes > 0
+    # what ran, by the kernels' own tallies: the eager iteration's
+    # launches and each replay's
+    assert launches.device_launches() == {
+        k: n * g.launches[k] for k in launches.TALLY_SLOTS}
+    want = {"torus_k2": dict(k2=4, k2_any_hit=0, k3_k4=0, p1=0),
+            "torus_nee_k2": dict(k3_k4=0, p1=0),
+            "torus_binary_k3": dict(k2=0, k3_k4=4, p1=0),
+            "textured_p1": dict(k2=4, k3_k4=0),
+            "sharded_adaptive": dict(k2=0, k3_k4=0, p1=0)}[case]
+    assert {k: g.launches[k] for k in want} == want
+    if case == "textured_p1":
+        assert g.launches["p1"] > 0
+    if case == "torus_nee_k2":
+        assert g.launches["k2"] > 4 and g.launches["k2_any_hit"] > 0
+    if case == "sharded_adaptive":
+        assert replans == [3, 6]  # both between replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", [
+    {"restir": 4}, {"adaptive": True, "adaptive_epoch": 3,
+                    "stratified": True}])
+def test_replay_after_reset_and_restore_on_card(settings):
+    """A captured graph replays on after reset() (an orbit: the camera
+    tensors and buffers are overwritten in place), giving a fresh
+    Renderer's frame at the new camera, and after restore_extras (a
+    resume), giving the uninterrupted render, both bit for bit."""
+    _need_card()
+
+    def make():
+        scene = _cornell(64)
+        scene.settings.trace_depth = 4
+        for k, v in settings.items():
+            setattr(scene.settings, k, v)
+        return Renderer(scene, device="cuda", route="wavefront")
+    r = make()
+    r.step_many(4)
+    g = r.graph
+    assert g is not None
+    r.scene.camera.position = r.scene.camera.position + np.float32(0.3)
+    r.scene.camera.derive()
+    r.reset()
+    r.step_many(7)
+    fresh = Renderer(r.scene, device="cuda", route="wavefront")
+    for _ in range(7):
+        fresh.step()
+    torch.cuda.synchronize()
+    assert r.graph is g and g.replays == 3 + 7
+    assert same_state(r, fresh)
+
+    whole, half, resumed = make(), make(), make()
+    whole.step_many(8)
+    half.step_many(4)
+    resumed.step_many(3)  # captured before the restore
+    g = resumed.graph
+    resumed.reset()
+    resumed.accum.copy_(half.accum)
+    resumed.iteration = half.iteration
+    resumed.restore_extras(half.checkpoint_extras())
+    resumed.step_many(4)
+    torch.cuda.synchronize()
+    assert resumed.graph is g
+    assert same_state(whole, resumed)
+
+
+@pytest.mark.cuda
+def test_failing_capture_raises_on_card(monkeypatch):
+    """A capture that fails raises, from the capture helper and through
+    step_many, and nothing falls back to the loop of steps."""
+    _need_card()
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as I
+    from project3_cuda_path_tracer_tpu_torch.utils.device import \
+        capture_graph
+    x = torch.ones(8, device="cuda")
+    with pytest.raises(RuntimeError):
+        capture_graph(lambda: x.sum().item(), torch.device("cuda"))
+    r = Renderer(_cornell(32), device="cuda", route="wavefront")
+    to_image = I.to_image
+
+    def reads_on_host(rad, cfg):
+        float(rad.x.sum())  # a host read: legal eagerly, not in a capture
+        return to_image(rad, cfg)
+    monkeypatch.setattr(I, "to_image", reads_on_host)
+    with pytest.raises(RuntimeError):
+        r.step_many(3)
+    assert r.graph is None and r.iteration == 1
+    monkeypatch.setattr(I, "to_image", to_image)
+    assert float(x.sum()) == 8.0  # the context survives the failed capture
