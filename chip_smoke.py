@@ -32,9 +32,20 @@ once) and drives these paths:
     bit for bit against its plain version on the bounce-0 and bounce-1
     shadow wavefronts, timed beside its bound, launches counted;
   - the train step (models/inverse.py): gradients on the card against the
-    CPU's at 64x64 depth 8; the history step on cornell 800x800 depth 8,
-    timed, with its peak memory; InverseRenderer fitting an albedo back;
-    and the mesh scene through the differentiable recompute (K2 inside);
+    CPU's at 64x64 depth 8; InverseRenderer fitting an albedo back; and the
+    mesh scene through the differentiable recompute (K2 inside);
+  - the train step as one captured CUDA graph (slice J): make_train_scan
+    and InverseRenderer replaying one graph of a whole step (render, loss,
+    autograd.grad, Adam, the history update) against the loop of eager
+    make_train_step calls from one state, bit for bit where two eager runs
+    of a step agree bit for bit: cornell 800x800 depth 8 in bench.py's
+    history form (ms a step both ways, fwd+bwd path segments/s, capture
+    and instantiate seconds, pool bytes, peak memory, a profiled replay
+    and eager step), a second call replaying with no new capture, three
+    two-render polish steps; the two-render form at 256x256; textured_env
+    at 512x512 under remat with K2 and P1 inside the graph (16 each a step
+    by their device tallies); InverseRenderer's history and polish graphs
+    in one pool;
   - direct lighting through `Renderer` (the wavefront route): cornell and
     scenes/lights.txt at 800x800 depth 8 with --nee, their means against
     K1's plain render, ms and kernels per iteration, the RMSE against
@@ -85,9 +96,9 @@ once) and drives these paths:
     depth 8 (each bounce checkpointed, the JAX remat rule; 16 K2 and 16 P1
     launches a step, K2 and P1 held bit for bit against their plain
     versions on the step's own bounce-0/1 inputs), sdf.txt and
-    dispersion.txt at 800x800 depth 8, each also under the other memory
-    schedule, with ms and peak memory a step; the card against the CPU
-    at 64x64 depth 8 on all three;
+    dispersion.txt at 800x800 depth 8, under the memory schedule of the
+    rule, with ms and peak memory a step; the card against the CPU at
+    64x64 depth 8 on all three;
   - sharding (slice G): mesh.txt 1024x1024 depth 8 through ShardedRenderer
     in a world of one over NCCL against the single-process render (1e-5),
     ms an iteration in turns, the sharded train step's gradients; two
@@ -2108,11 +2119,12 @@ def grads_card_vs_cpu(scene, tag: str, cfg, nonzero_leaf=None) -> dict:
     return rec
 
 
-def train_phases(gpu: str, target: torch.Tensor) -> None:
-    """The train step (models/inverse.py) on the card. `target` is the
-    main path's cornell 800x800 image (per-iteration mean)."""
+def train_phases(gpu: str) -> None:
+    """The train step (models/inverse.py) on the card: gradients against
+    the CPU's, and InverseRenderer fitting an albedo back (its steps
+    replay the train-step graphs). The step at full width is
+    `train_graph_phases`'."""
     from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
 
     # ---- 9a. gradients, card against CPU ----------------------------------
@@ -2120,63 +2132,6 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
     scene.settings.stratified = True
     grads_card_vs_cpu(scene, "train grads card vs cpu 64x64 d8",
                       PI.build_trace_config(scene), nonzero_leaf=0)
-
-    # ---- 9b. the history step at full width -------------------------------
-    # cornell 800x800, depth 8, fitting the white albedo from 0.5 back to
-    # the main path's image: a seed render, 2 warm-up steps, TIMED_STEPS
-    # timed steps (CUDA events, no host sync inside), one step under
-    # torch.profiler, then 3 two-render steps.
-    TIMED_STEPS = 5
-    bad = sized(SCENE, 800, 8)
-    bad.materials.color[1] = 0.5
-    mk.LAUNCHES = 0
-    ir = PInv.InverseRenderer(bad, target.cpu().numpy(), device="cuda")
-    w, h = bad.camera.resolution
-    if (w, h, ir.cfg.trace_depth) != (800, 800, 8):
-        raise AssertionError("the train step is not at 800x800 depth 8")
-    warm = [ir.step(), ir.step()]
-    step = ir._step
-    p, st, hist = ir.params, ir.opt_state, ir.hist
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    losses = []
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(TIMED_STEPS):
-        p, st, hist, loss = step(p, st, hist,
-                                 PInv.step_generator(5, i, "cuda"),
-                                 ir.target)
-        losses.append(loss)
-    stop.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ms = start.elapsed_time(stop) / TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
-    prof = profile_one(lambda: step(p, st, hist,
-                                    PInv.step_generator(6, 0, "cuda"),
-                                    ir.target))
-    ir.params, ir.opt_state, ir.hist = p, st, hist
-    start.record()
-    polish = [ir.step(polish=True) for _ in range(3)]
-    stop.record()
-    torch.cuda.synchronize()
-    polish_ms = start.elapsed_time(stop) / 3
-    losses = torch.stack(losses).cpu().numpy().tolist()
-    albedo = float(ir.params.materials.color[1, 0].detach())
-    log(json.dumps(dict(
-        metric="train_step_ms", value=ms, host_wall_ms=wall_ms,
-        config="cornell 800x800 depth 8, history step", gpu=gpu,
-        fwdbwd_path_segments_per_s=800 * 800 * 8 / (ms / 1e3),
-        peak_memory_bytes=peak, two_render_step_ms=polish_ms,
-        warmup_losses=warm, losses=losses, polish_losses=polish,
-        white_albedo_after=albedo, k1_launches=mk.LAUNCHES, **prof)))
-    if not np.isfinite(warm + losses + polish).all():
-        raise AssertionError("train step: non-finite loss")
-    if albedo == 0.5 or mk.LAUNCHES:
-        raise AssertionError(f"train step: albedo {albedo}, K1 launched "
-                             f"{mk.LAUNCHES} times (the wavefront runs it)")
 
     # ---- 9c. InverseRenderer fits the albedo back --------------------------
     # 128x128, depth 2 (tests/test_torch_train.py fits at 64x64 on the CPU;
@@ -2211,6 +2166,412 @@ def train_phases(gpu: str, target: torch.Tensor) -> None:
                         seconds=time.perf_counter() - t0)))
     if np.abs(got - 0.98).max() > 0.2:
         raise AssertionError(f"fit recovered {got}, not 0.98 +- 0.2")
+
+
+# ---------------------------------------------------------------------------
+# The train step as one captured graph (slice J)
+# ---------------------------------------------------------------------------
+
+class TrainCase:
+    """One scene's train step on the card as InverseRenderer holds it
+    (`train_config`, textures fused, meshes packed) and one start state
+    (`start`: the scene's parameters, a fresh Adam state, one history
+    render seeded from `step_generator(99, 0)`), stepped as make_train_step
+    calls (`eager`) or through make_train_scan."""
+
+    def __init__(self, scene, target: torch.Tensor):
+        from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+        from project3_cuda_path_tracer_tpu_torch.ops import texfetch
+        from project3_cuda_path_tracer_tpu_torch.render import \
+            integrator as PI
+        dev = torch.device("cuda")
+        self.scene, self.target = scene, target
+        self.cfg = PInv.train_config(scene)
+        self.tables = (PI.to_device(scene.geoms, dev),
+                       PI.to_device(scene.meshes, dev),
+                       texfetch.fuse(PI.to_device(scene.textures, dev)))
+        self.packed = tuple(PI.to_device(p, dev)
+                            for p in scene.packed_meshes)
+        self.hist0 = PInv.make_seed_history(
+            *self.tables, self.cfg, self.packed)(
+            PInv.params_from_scene(scene, dev),
+            PInv.step_generator(99, 0, dev))
+
+    def start(self):
+        from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+        from project3_cuda_path_tracer_tpu_torch.models import optim
+        p = PInv.params_from_scene(self.scene, torch.device("cuda"))
+        return p, optim.init(PInv.param_leaves(p)), self.hist0.clone()
+
+    def eager(self, step, state, seed: int, steps, history: bool):
+        """make_train_step calls for the step indices `steps`, step i
+        drawing from step_generator(seed, i): (params, opt_state, hist or
+        None, losses)."""
+        from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+        p, s, h = state
+        losses = []
+        for i in steps:
+            gen = PInv.step_generator(seed, i, "cuda")
+            if history:
+                p, s, h, loss = step(p, s, h, gen, self.target)
+            else:
+                p, s, loss = step(p, s, gen, self.target)
+            losses.append(loss)
+        return p, s, h if history else None, torch.stack(losses)
+
+
+def nondeterministic_ops(fn) -> list:
+    """The ops of `fn()` that torch names as having no deterministic CUDA
+    implementation (the warnings of `use_deterministic_algorithms(True,
+    warn_only=True)`, which is on during this call alone)."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0][:120]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def timed(fn, n: int) -> tuple:
+    """(fn()'s result, device ms a step by CUDA events around it, host wall
+    ms a step), n steps, synchronised on both sides."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return (out, start.elapsed_time(stop) / n,
+            (time.perf_counter() - t0) * 1e3 / n)
+
+
+def within(gap: dict, spread: dict) -> bool:
+    return all(gap[k] <= spread[k] for k in gap)
+
+
+def graph_vs_eager(tag: str, case: TrainCase, history: bool, n: int,
+                   gpu: str, config: str, second: bool = False,
+                   profile: bool = False) -> dict:
+    """make_train_scan(num_steps=n) against n make_train_step calls from one
+    start state, seed 7. The rule: the loop's first step, run once more
+    from the start state, sets the spread; where the two agree bit for
+    bit, the graph's state (losses, leaves, mu, nu, count, history:
+    `train_state_gap`) must equal the loop's bit for bit; where they do
+    not, the ops torch names as nondeterministic are printed and the
+    graph is held to the gap between two whole loops, no looser. Both ways
+    timed (`timed`: the loop, then the graph's first call, whose first
+    step is eager and whose second is captured), with each one's peak
+    memory, the capture's seconds, pool bytes and launches a replay, and
+    the kernels' device tallies over the graph's call. With `second`, a
+    second call of the same function from the first one's outputs (seed
+    8, as bench.py's next epoch: replays alone) and the loop continued
+    from the eager outputs, timed in that order, held the same way: no new
+    capture; without it, two more replays are timed alone. With `profile`,
+    one replay and one eager step under torch.profiler."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    gap_of = PInv.train_state_gap
+    step = PInv.make_train_step(*case.tables, case.cfg,
+                                packed_meshes=case.packed, history=history)
+    run = PInv.make_train_scan(*case.tables, case.cfg, num_steps=n,
+                               packed_meshes=case.packed, history=history)
+    kept = {}
+
+    def loop():
+        one = case.eager(step, case.start(), 7, range(1), history)
+        kept["one"] = PInv.copy_train_state(*one[:3]) + (one[3].clone(),)
+        rest = case.eager(step, one[:3], 7, range(1, n), history)
+        return rest[:3] + (torch.cat([one[3], rest[3]]),)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want, eager_ms, eager_wall = timed(loop, n)
+    eager_peak = torch.cuda.max_memory_allocated()
+    again = case.eager(step, case.start(), 7, range(1), history)
+    spread = gap_of(kept.pop("one"), again)
+    bitwise = not any(spread.values())
+    ops = []
+    if not bitwise:
+        ops = nondeterministic_ops(
+            lambda: case.eager(step, case.start(), 7, range(1), history))
+        spread = gap_of(want, case.eager(step, case.start(), 7, range(n),
+                                         history))
+    del again
+
+    def graph_call(state, seed):
+        p, s, h = state
+        out = run(p, s, h, seed, case.target) if history else run(
+            p, s, seed, case.target)
+        return out if history else (out[0], out[1], None, out[2])
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+
+    def first_call():
+        got["out"], got["ms"], got["wall"] = timed(
+            lambda: graph_call(case.start(), 7), n)
+    ran = measured_launches(first_call)
+    graph_peak = torch.cuda.max_memory_allocated()
+    gap = gap_of(got["out"], want)
+    tg = run.train_graph
+    g = tg.graph
+    if g is None:
+        raise AssertionError(f"{tag}: nothing was captured")
+    rec = dict(metric=f"train_graph_{tag}", config=config, steps=n,
+               history=history, remat=case.cfg.remat,
+               deterministic=bitwise, nondeterministic_ops=ops,
+               eager_spread=spread, gap=gap,
+               bitwise=not any(gap.values()),
+               ms_per_step_eager=eager_ms, host_wall_ms_eager=eager_wall,
+               ms_per_step_graph_first_call=got["ms"],
+               host_wall_ms_graph_first_call=got["wall"],
+               peak_memory_bytes_eager=eager_peak,
+               peak_memory_bytes_graph_first_call=graph_peak,
+               capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+               pool_bytes=g.pool_bytes, launches_per_replay=g.launches,
+               device_launches={k: v for k, v in ran.items()
+                                if k != "wrappers"},
+               wrapper_launches=ran["wrappers"],
+               losses_graph=got["out"][3].tolist(),
+               losses_eager=want[3].tolist(), gpu=gpu)
+    if second:
+        got2, ms2, wall2 = timed(lambda: graph_call(
+            PInv.copy_train_state(*got["out"][:3]), 8), n)
+        want2, ems2, ewall2 = timed(lambda: case.eager(
+            step, PInv.copy_train_state(*want[:3]), 8, range(n), history), n)
+        gap2 = gap_of(got2, want2)
+        rec.update(second_call=dict(
+            gap=gap2, bitwise=not any(gap2.values()),
+            ms_per_step_graph=ms2, host_wall_ms_graph=wall2,
+            ms_per_step_eager=ems2, host_wall_ms_eager=ewall2,
+            captured_again=run.train_graph.graph is not g,
+            replays=g.replays))
+        rec["second_call"]["fwdbwd_path_segments_per_s_graph"] = (
+            case.cfg.width * case.cfg.height * case.cfg.trace_depth
+            / (ms2 / 1e3))
+        rec["second_call"]["fwdbwd_path_segments_per_s_eager"] = (
+            case.cfg.width * case.cfg.height * case.cfg.trace_depth
+            / (ems2 / 1e3))
+    rec["graph_replays"] = g.replays
+    if not second:
+        # two more replays, timed: the graph's ms a step
+        def replays():
+            for k in range(2):
+                tg._prepare(9, k)
+                g.replay()
+        _, rec["ms_per_step_graph_replays"], rec[
+            "host_wall_ms_graph_replays"] = timed(replays, 2)
+    if profile:
+        def replay():
+            tg._prepare(9, 0)
+            g.replay()
+        p, s, h = case.start()
+        rec.update(replay_profile=profile_one(replay, host_ops=False),
+                   eager_step_profile=profile_one(
+                       lambda: case.eager(step, (p, s, h), 9, range(1),
+                                          history), host_ops=False))
+    log(json.dumps(rec))
+    if not within(gap, spread):
+        raise AssertionError(f"{tag}: the graph's state is {gap} from the "
+                             f"eager loop's, the eager spread {spread}")
+    if rec["graph_replays"] != n - 1 + (n if second else 0):
+        raise AssertionError(f"{tag}: {rec['graph_replays']} replays")
+    if second and (rec["second_call"]["captured_again"]
+                   or not within(rec["second_call"]["gap"], spread)):
+        raise AssertionError(f"{tag}: second call {rec['second_call']}")
+    if not np.isfinite(rec["losses_graph"]).all():
+        raise AssertionError(f"{tag}: non-finite loss")
+    rec["run"] = run
+    return rec
+
+
+def inverse_graphs(gpu: str) -> dict:
+    """(e) InverseRenderer on cornell 256x256 depth 8 (white albedo 0.5, a
+    flat grey target): fit(6, polish_steps=2), then a history, a polish
+    and a history step, each form's graph replayed after the other's
+    (they share one pool), against the loop of make_train_step calls on
+    InverseRenderer's draw schedule, by `graph_vs_eager`'s rule (the
+    spread of the first step, seed render included, run twice; of the
+    whole schedule where those differ)."""
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    bad = sized(SCENE, 256, 8)
+    bad.materials.color[1] = 0.5
+    w, h = bad.camera.resolution
+    target = np.full((h, w, 3), 0.3, np.float32)
+    kinds = "hhhhpphph"
+
+    def reference(kinds):
+        """The renderer's schedule `kinds` (h: a history step, p: a polish
+        step) as make_train_step calls."""
+        ref = PInv.InverseRenderer(bad, target, seed=4, device="cuda")
+        hstep = PInv.make_train_step(*ref.tables, ref.cfg, history=True)
+        pstep = PInv.make_train_step(*ref.tables, ref.cfg)
+        seed_hist = PInv.make_seed_history(*ref.tables, ref.cfg)
+        p, s, hist, draws, losses = ref.params, ref.opt_state, None, 0, []
+        for kind in kinds:
+            if kind == "h" and hist is None:
+                hist = seed_hist(p, PInv.step_generator(4, draws, "cuda"))
+                draws += 1
+            gen = PInv.step_generator(4, draws, "cuda")
+            draws += 1
+            if kind == "h":
+                p, s, hist, loss = hstep(p, s, hist, gen, ref.target)
+            else:
+                p, s, loss = pstep(p, s, gen, ref.target)
+                hist = None
+            losses.append(loss)
+        return p, s, hist, torch.stack(losses)
+
+    want, eager_ms, _ = timed(lambda: reference(kinds), len(kinds))
+    spread = PInv.train_state_gap(reference("h"), reference("h"))
+    if any(spread.values()):
+        spread = PInv.train_state_gap(want, reference(kinds))
+    ir = PInv.InverseRenderer(bad, target, seed=4, device="cuda")
+
+    def fit():
+        return ir.fit(6, polish_steps=2) + [ir.step(), ir.step(polish=True),
+                                            ir.step()]
+    losses, graph_ms, _ = timed(fit, len(kinds))
+    got = (ir.params, ir.opt_state, ir.hist,
+           torch.tensor(losses, device="cuda"))
+    want = want[:3] + (want[3].float(),)
+    gap = PInv.train_state_gap(got, want)
+    graphs = ir.graphs
+    rec = dict(metric="train_graph_inverse_renderer",
+               config="cornell 256x256 depth 8, fit(6, polish_steps=2) "
+                      "then history, polish, history steps",
+               gap=gap, eager_spread=spread,
+               bitwise=not any(gap.values()), losses=losses,
+               ms_per_step_eager=eager_ms, ms_per_step_graph=graph_ms,
+               graphs={k: None if g is None else dict(
+                   replays=g.replays, capture_s=g.capture_s,
+                   instantiate_s=g.instantiate_s, pool_bytes=g.pool_bytes)
+                   for k, g in graphs.items()},
+               shared_pool=all(g is not None for g in graphs.values()) and (
+                   graphs["history"].graph.pool()
+                   == graphs["two_render"].graph.pool()),
+               gpu=gpu)
+    log(json.dumps(rec))
+    if not within(gap, spread):
+        raise AssertionError(f"inverse renderer graphs: {gap} from the "
+                             f"eager steps, spread {spread}")
+    if not (rec["shared_pool"] and graphs["history"].replays == 5
+            and graphs["two_render"].replays == 2):
+        raise AssertionError(f"inverse renderer graphs: {rec['graphs']}")
+    return rec
+
+
+def train_graph_phases(gpu: str, target: torch.Tensor) -> dict:
+    """Slice J: the train step as one captured CUDA graph, replayed by
+    make_train_scan and InverseRenderer. (a) cornell 800x800 depth 8, the
+    history form, bench.py's configuration (white albedo 0.5, the main
+    path's image as target): 5 steps both ways (`graph_vs_eager`), then
+    (b) a second call of the same function, profiled, and 3 two-render
+    polish steps through InverseRenderer from (a)'s state; (c) the
+    two-render form at 256x256; (d) textured_env at 512x512 depth 8 (cut
+    from its own 2048x2048 for time), remat by the rule, K2 and P1 inside
+    the graph (16 each a step: forward and recompute), by their device
+    tallies; (e) `inverse_graphs`. K1 launches 0 throughout. Each part's
+    graphs are deleted before the next. Returns the tallies for the
+    `kernels` line."""
+    import gc
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start - sum(marks.values())
+    zero_counts()
+    bad = sized(SCENE, 800, 8)
+    bad.materials.color[1] = 0.5
+    case = TrainCase(bad, target)
+    if (case.cfg.width, case.cfg.height, case.cfg.trace_depth,
+            case.cfg.remat) != (800, 800, 8, False):
+        raise AssertionError(f"the train step is not bench.py's: {case.cfg}")
+    a = graph_vs_eager("cornell_800_history", case, True, 5, gpu,
+                       "cornell 800x800 depth 8, history step (bench.py)",
+                       second=True, profile=True)
+    # the polish steps, through InverseRenderer, from (a)'s graph state
+    state = a.pop("run").train_graph
+    ir = PInv.InverseRenderer(bad, target.cpu().numpy(), device="cuda")
+    with torch.no_grad():
+        for mine, theirs in zip(PInv.param_leaves(ir.params) + ir.opt_state.mu
+                                + ir.opt_state.nu + [ir.opt_state.count],
+                                PInv.param_leaves(state.params)
+                                + state.opt_state.mu + state.opt_state.nu
+                                + [state.opt_state.count]):
+            mine.copy_(theirs)
+    del state
+    gc.collect()
+    polish, polish_ms, _ = timed(
+        lambda: [ir.step(polish=True) for _ in range(3)], 3)
+    albedo = float(ir.params.materials.color[1, 0].detach())
+    g = ir.graphs["two_render"]
+    log(json.dumps(dict(
+        metric="train_graph_polish_steps", config="cornell 800x800 depth 8, "
+        "3 two-render steps of InverseRenderer from (a)'s state (one eager, "
+        "the capture, a replay)", ms_per_step=polish_ms, losses=polish,
+        white_albedo_after=albedo, replays=g.replays, capture_s=g.capture_s,
+        instantiate_s=g.instantiate_s, pool_bytes=g.pool_bytes, gpu=gpu)))
+    del ir
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("cornell_800")
+    def grey(scene):
+        w, h = scene.camera.resolution
+        return torch.full((h, w, 3), 0.3, device="cuda")
+    small = sized(SCENE, 256, 8)
+    small.materials.color[1] = 0.5
+    c = graph_vs_eager("cornell_256_two_render", TrainCase(small, grey(small)),
+                       False, 3, gpu, "cornell 256x256 depth 8, two-render "
+                       "step")
+    c.pop("run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("cornell_256_two_render")
+    tex = sized(TEXTURED, 512, 8)
+    d = graph_vs_eager("textured_env_512_history", TrainCase(tex, grey(tex)),
+                       True, 3, gpu, "textured_env 512x512 depth 8 (its own "
+                       "2048x2048 cut for time), history step, remat by "
+                       "the rule")
+    d.pop("run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("textured_env_512")
+    e = inverse_graphs(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("inverse_renderer")
+    k1 = read_counts()["k1"]
+    per, ran, wrappers = (d["launches_per_replay"], d["device_launches"],
+                          d["wrapper_launches"])
+    # the eager step counted by its wrappers, the capture once more (no
+    # kernel runs under it), and 2 replays by the kernels' own tallies
+    tallies_ok = all(
+        per[k] == 16 and ran[k] == wrappers[k] - per[k] + 2 * per[k]
+        and wrappers[k] == 2 * per[k] for k in ("k2", "p1"))
+    out = dict(seconds=time.perf_counter() - t_start, seconds_by_part=marks,
+               k1_launches=k1, textured_tallies_ok=tallies_ok,
+               k2_launches=ran["k2"], p1_launches=ran["p1"],
+               cornell_800=dict(
+                   eager_ms=a["ms_per_step_eager"],
+                   graph_ms=a["second_call"]["ms_per_step_graph"],
+                   eager_ms_second=a["second_call"]["ms_per_step_eager"],
+                   bitwise=a["bitwise"], pool_bytes=a["pool_bytes"]),
+               gpu=gpu)
+    log(json.dumps(dict(metric="train_graph_summary", **out)))
+    if k1:
+        raise AssertionError(f"train graph: K1 launched {k1} times")
+    if not tallies_ok:
+        raise AssertionError(f"textured train graph: K2/P1 launches {ran}, "
+                             f"{per} a replay, wrappers {wrappers}")
+    if not (np.isfinite(polish).all() and albedo != 0.5):
+        raise AssertionError(f"polish steps: {polish}, albedo {albedo}")
+    return dict(out, records=dict(a=a, c=c, d=d, e=e))
 
 
 def profile_one(fn, top: int = 6, host_ops: bool = True,
@@ -2609,13 +2970,13 @@ def mesh_integrator(scene, gpu: str):
     return k2, {k: v["value"] for k, v in times.items()}
 
 
-def sdf_dispersion(name: str, outdir: str, gpu: str) -> dict:
+def sdf_dispersion(name: str, outdir: str, gpu: str, spp: int = 16) -> dict:
     """scenes/<name>.txt at its own 800x800 depth 8 through `Renderer`: the
     route (wavefront, no K1) of one iteration with the counts set to 0
     before it, one iteration's kernels and busy share (torch.profiler's
-    device activity), then a 16-spp image whose iterations are timed by
-    CUDA events (ms an iteration); the card against the CPU at 64x64 depth
-    8, stratified, with the share of divergent lanes."""
+    device activity), then an `spp` image whose eager iterations are timed
+    by CUDA events (ms an iteration); the card against the CPU at 64x64
+    depth 8, stratified, with the share of divergent lanes."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     path = os.path.join(ROOT, "scenes", name + ".txt")
     scene = load_scene(path)
@@ -2632,14 +2993,15 @@ def sdf_dispersion(name: str, outdir: str, gpu: str) -> dict:
     prof = profile_one(r.step, host_ops=False)
     r.reset()
     rec = dict(metric=f"{name}_ms_per_iteration",
-               value=time_ms(r.step, 16, warm=0), route=r.route,
-               config=f"{name}.txt 800x800 depth 8, the 16 spp of its image",
+               value=time_ms(r.step, spp, warm=0), route=r.route,
+               config=f"{name}.txt 800x800 depth 8, the {spp} spp of its "
+                      "image",
                gpu=gpu, **prof)
     log(json.dumps(rec))
     img = r.image()
     if not np.isfinite(img).all() or (img < 0).any() or img.mean() <= 0:
         raise AssertionError(f"{name} image is not finite and > 0")
-    png = r.save(os.path.join(outdir, f"{name}_800x800_16spp"))
+    png = r.save(os.path.join(outdir, f"{name}_800x800_{spp}spp"))
     imgs = []
     for dev in ("cuda", "cpu"):
         small = sized(path, 64, 8)
@@ -2698,9 +3060,10 @@ def integrator_phases(mesh_scene, outdir: str, gpu: str) -> dict:
                  "cornell_dof.txt 800x800 depth 8 --sort --stratified")
     mark("cornell_dof")
 
-    # SDFs and dispersion at their own size
-    res = {name: sdf_dispersion(name, outdir, gpu)
-           for name in ("sdf", "dispersion")}
+    # SDFs and dispersion at their own size (sdf.txt's eager iteration takes
+    # ~1.6 s: 8 of them; dispersion's 16 feed the split check below)
+    res = {name: sdf_dispersion(name, outdir, gpu, spp)
+           for name, spp in (("sdf", 8), ("dispersion", 16))}
     flat = res["dispersion"].pop("scene")
     flat.materials.dispersion = torch.zeros_like(flat.materials.dispersion)
     r0 = Renderer(flat, device="cuda")
@@ -3215,16 +3578,13 @@ def services_phases(mesh_scene, outdir: str, gpu: str) -> dict:
 GB = 1e9
 
 
-def train_step_run(name: str, gpu: str, remat=None, steps: int = 1,
-                   capture: bool = False) -> dict:
+def train_step_run(name: str, gpu: str, capture: bool = False) -> dict:
     """scenes/<name>.txt at its own size through InverseRenderer's history
-    step (`remat` None: the rule of `models.inverse.train_config`): the
-    history seeded by one render, then, with every count set to 0 and the
-    peak memory reset, `steps` steps timed by CUDA events (the first one's
-    K2 and P1 launches counted; with `capture`, its K2 rays and texel
-    fetches kept). A step that runs out of memory is reported as not
-    fitting (a measurement of a schedule the rule leaves out, not a
-    check)."""
+    step, under the memory schedule of `models.inverse.train_config`'s
+    rule: the history seeded by one render, then, with every count set to
+    0 and the peak memory reset, one (eager) step timed by CUDA events,
+    its K2 and P1 launches counted (with `capture`, its K2 rays and texel
+    fetches kept)."""
     import gc
     from project3_cuda_path_tracer_tpu_torch import load_scene
     from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
@@ -3234,56 +3594,44 @@ def train_step_run(name: str, gpu: str, remat=None, steps: int = 1,
     w, h = scene.camera.resolution
     every = lambda *a, **k: True  # noqa: E731
     ir = PInv.InverseRenderer(scene, np.full((h, w, 3), 0.3, np.float32),
-                              device="cuda", remat=remat)
+                              device="cuda")
     cfg = ir.cfg
     fetches = waves = []
-    try:
-        ir.hist = ir._seed_hist(ir.params, ir._generator())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        with contextlib.ExitStack() as stack:
-            if capture:
-                # the forward's bounce 0 and 1 (cloned: kept out of the
-                # peak's baseline by their small count)
-                fetches = stack.enter_context(capturing(
-                    texfetch, "take_u32", every))
-                waves = stack.enter_context(capturing(P8, "traverse8",
-                                                      every))
-            losses = [ir.step()]
-        counts = read_counts()
-        losses += [ir.step() for _ in range(steps - 1)]
-        stop.record()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        rec = dict(metric="train_step_ms", scene=f"scenes/{name}.txt",
-                   value=start.elapsed_time(stop) / steps,
-                   host_wall_ms=(time.perf_counter() - t0) * 1e3 / steps,
-                   steps=steps,
-                   config=f"{name}.txt {w}x{h} depth {cfg.trace_depth}, "
-                          f"history step, remat {cfg.remat}",
-                   remat=cfg.remat, fits=True, peak_memory_bytes=peak,
-                   peak_gb=peak / GB, k2_launches_per_step=counts["k2"],
-                   p1_launches_per_step=counts["p1"], counts=counts,
-                   losses=losses, gpu=gpu)
-    except torch.cuda.OutOfMemoryError as e:
-        rec = dict(metric="train_step_ms", scene=f"scenes/{name}.txt",
-                   value=None, config=f"{name}.txt {w}x{h} depth "
-                   f"{cfg.trace_depth}, history step, remat {cfg.remat}",
-                   remat=cfg.remat, fits=False,
-                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                   error=str(e)[:160], gpu=gpu)
-        fetches = waves = []
+    ir.seed_history()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    with contextlib.ExitStack() as stack:
+        if capture:
+            # the forward's bounce 0 and 1 (cloned: kept out of the peak's
+            # baseline by their small count)
+            fetches = stack.enter_context(capturing(
+                texfetch, "take_u32", every))
+            waves = stack.enter_context(capturing(P8, "traverse8", every))
+        losses = [ir.step()]
+    stop.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(metric="train_step_ms", scene=f"scenes/{name}.txt",
+               value=start.elapsed_time(stop),
+               host_wall_ms=(time.perf_counter() - t0) * 1e3,
+               config=f"{name}.txt {w}x{h} depth {cfg.trace_depth}, "
+                      f"history step, remat {cfg.remat}",
+               remat=cfg.remat, peak_memory_bytes=peak, peak_gb=peak / GB,
+               k2_launches_per_step=counts["k2"],
+               p1_launches_per_step=counts["p1"], counts=counts,
+               losses=losses, gpu=gpu)
     log(json.dumps(rec))
     packed = ir.packed_meshes[0] if ir.packed_meshes else None
     del ir
     gc.collect()
     torch.cuda.empty_cache()
-    if rec["fits"] and not np.isfinite(rec["losses"]).all():
+    if not np.isfinite(rec["losses"]).all():
         raise AssertionError(f"{name} train step: non-finite loss {rec}")
     return dict(rec=rec, fetches=fetches, waves=waves, packed=packed)
 
@@ -3292,8 +3640,8 @@ def train_textured_phases(gpu: str) -> dict:
     """The train step through textured, SDF and dispersive scenes:
     textured_env at its own 2048x2048 depth 8 (remat by the rule: the torus
     is a mesh), sdf.txt (remat by the rule: SDF geoms) and dispersion.txt
-    (no remat) at 800x800 depth 8, each also under the other schedule, one
-    step each; K2 and P1 held bit for
+    (no remat) at 800x800 depth 8, one step each under the rule's
+    schedule; K2 and P1 held bit for
     bit against their plain versions on the textured step's own bounce-0
     and bounce-1 inputs; the card against the CPU at 64x64 depth 8.
     Returns the launches for the `kernels` line."""
@@ -3303,7 +3651,7 @@ def train_textured_phases(gpu: str) -> dict:
     r = tex["rec"]
     # remat: each bounce's K2 walk and fused fetch run again in the backward
     depth = 8
-    if not (r["fits"] and r["remat"] and r["counts"]["k2"] == 2 * depth
+    if not (r["remat"] and r["counts"]["k2"] == 2 * depth
             and r["counts"]["p1"] == 2 * depth and r["counts"]["k1"] == 0
             and len(tex["fetches"]) == len(tex["waves"]) == 2):
         raise AssertionError(f"textured train step: {r}")
@@ -3313,18 +3661,15 @@ def train_textured_phases(gpu: str) -> dict:
     p1 = p1_on_path(gpu, tex["fetches"][:2])
     k2 = k2_torus(gpu, tex["packed"], tex["waves"][:2], any_hit=False)
     del tex
-    recs["textured_env_no_remat"] = train_step_run(
-        "textured_env", gpu, remat=False)["rec"]
     # sdf.txt takes remat by the rule (the eager march's saved planes);
-    # dispersion.txt does not
+    # dispersion.txt does not. The schedules the rule leaves out are not
+    # run (their times are in PERF.md section 5).
     for name, rule_remat in (("sdf", True), ("dispersion", False)):
         rule = train_step_run(name, gpu)["rec"]
-        if not (rule["fits"] and rule["remat"] == rule_remat
+        if not (rule["remat"] == rule_remat
                 and not any(rule["counts"].values())):
             raise AssertionError(f"{name} train step: {rule}")
         recs[name] = rule
-        recs[f"{name}_remat_{not rule_remat}"] = train_step_run(
-            name, gpu, remat=not rule_remat)["rec"]
     for name in ("textured_env", "sdf", "dispersion"):
         small = sized(os.path.join(ROOT, "scenes", name + ".txt"), 64, 8)
         small.settings.stratified = True
@@ -3332,9 +3677,8 @@ def train_textured_phases(gpu: str) -> dict:
         grads_card_vs_cpu(small, f"train grads card vs cpu {name} 64x64 d8",
                           cfg)
     log(json.dumps(dict(metric="train_textured_summary", gpu=gpu, **{
-        k: dict(ms=v["value"], peak_gb=v.get("peak_gb"), fits=v["fits"],
-                remat=v["remat"], k2=v.get("k2_launches_per_step"),
-                p1=v.get("p1_launches_per_step"))
+        k: dict(ms=v["value"], peak_gb=v["peak_gb"], remat=v["remat"],
+                k2=v["k2_launches_per_step"], p1=v["p1_launches_per_step"])
         for k, v in recs.items()})))
     return dict(k2_launches=r["counts"]["k2"], p1_launches=r["counts"]["p1"],
                 p1=p1, k2=k2)
@@ -3982,8 +4326,10 @@ def main() -> int:
     mark("mesh")
 
     # ---- 9. the train step --------------------------------------------------
-    train_phases(gpu, r.accum / r.iteration)
+    train_phases(gpu)
     mark("train")
+    train_graph = train_graph_phases(gpu, r.accum / r.iteration)
+    mark("train_graph")
 
     # ---- 9b. direct lighting: NEE, RIS, ReSTIR, many lights -----------------
     nee_phases(args.outdir, gpu)
@@ -4021,7 +4367,9 @@ def main() -> int:
                "mesh denoise G-buffer": k2["gbuffer_launches"],
                "textured_env train step": app["train"]["k2_launches"],
                "mesh sharded, world 1": app["shard"]["k2_launches"],
-               "chunked renders (graph replays)": chunk["k2"]}
+               "chunked renders (graph replays)": chunk["k2"],
+               "textured_env 512 train scan (1 eager step, 2 replays)":
+                   train_graph["k2_launches"]}
     k2.update(launches=sum(by_path.values()), launches_by_path=by_path,
               train_step_ms=[k["held_ms"] for k in app["train"]["k2"]])
 
@@ -4037,12 +4385,14 @@ def main() -> int:
     p1_train = app["train"]["p1"]
     probe.update(
         launches=(tex["launches"] + app["train"]["p1_launches"]
-                  + chunk["p1"]),
+                  + chunk["p1"] + train_graph["p1_launches"]),
         launches_by_path={"textured_env": tex["launches"],
                           "textured_env train step":
                               app["train"]["p1_launches"],
                           "textured_env chunk (graph replays)":
-                              chunk["p1"]},
+                              chunk["p1"],
+                          "textured_env 512 train scan (1 eager step, "
+                          "2 replays)": train_graph["p1_launches"]},
         train_step_ms=[b["value"] for b in p1_train],
         train_step_library_ms=[b["library_ms"] for b in p1_train],
         ms=p1["value"], cold_ms=p1["cold_ms"],

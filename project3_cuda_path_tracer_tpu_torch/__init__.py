@@ -12,6 +12,6 @@ Quick start:
 """
 from .scene.parser import load_scene  # noqa: F401
 from .scene import types as scene_types  # noqa: F401
-from .render.integrator import Renderer  # noqa: F401
+from .render.integrator import Renderer, render_samples  # noqa: F401
 
 __version__ = "0.1.0"

@@ -573,8 +573,10 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
         cached = depth == 0 and first_hit is not None
         last = depth >= cfg.trace_depth - 1
         if remat:
-            # the bounce's draws first, outside the recomputed function
-            # (checkpoint restores only the default generators' states)
+            # the bounce's draws first, outside the recomputed function,
+            # which draws nothing: so no generator state is saved for the
+            # recompute (`preserve_rng_state=False`; reading the default
+            # CUDA generator's state is refused under a graph capture)
             if u is not None:
                 uniforms = tuple(u[depth])
             elif strat:
@@ -586,7 +588,7 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
             out = torch.utils.checkpoint.checkpoint(
                 _bounce, o, d, times, thr, alive, uniforms, last, geoms,
                 materials, textures, cfg, packed_meshes, meshes,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
             rad = rad + out.radiance
             thr, alive = out.throughput, out.alive
             o, d = out.origin, out.direction

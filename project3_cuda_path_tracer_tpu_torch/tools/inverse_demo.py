@@ -3,10 +3,13 @@ descent through the renderer (the counterpart of the repository's
 tools/inverse_demo.py).
 
 Renders a target Cornell image with the true materials, perturbs the white
-walls' albedo, then fits it back with the unbiased two-render MSE gradient
-(models/inverse.py), or with the one-render history-residual loss and an
-optional two-render polish tail. Only the albedo table trains; every other
-leaf is frozen. Prints one JSON line per log step and the recovered albedo
+walls' albedo, then fits it back through `InverseRenderer` (models/
+inverse.py) with the unbiased two-render MSE gradient, or with the
+one-render history-residual loss and an optional two-render polish tail,
+the steps of `fit` taken one at a time. Only the albedo table trains;
+every other leaf is frozen. On the card each loss form's steps replay one
+captured graph of the train step. Prints one JSON line per log step, the
+wall ms a step (on the device named beside it) and the recovered albedo
 (the mean over a tail window of the iterates), and saves target / initial
 / recovered PNGs.
 
@@ -42,73 +45,76 @@ def main(argv=None) -> int:
                          "you)")
     args = ap.parse_args(argv)
 
+    import time
+
     import numpy as np
     import torch
 
     from ..models import inverse as inv
-    from ..models import optim
+    from ..ops import texfetch
     from ..render import integrator as integ
     from ..scene.parser import load_scene
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, synchronize
     from ..utils.image import write_png
 
     dev = resolve_device(args.device)
     s = load_scene(args.scene)
     s.camera.resolution = (args.res, args.res)
     s.camera.derive()
-    cfg = integ.TraceConfig(
-        width=args.res, height=args.res, trace_depth=args.depth,
-        antialias=False, geom_types=tuple(int(t) for t in
-                                          s.geoms.type.tolist()),
-        glossy=False)
-    geoms = integ.to_device(s.geoms, dev)
-    meshes = integ.to_device(s.meshes, dev)
-    textures = integ.to_device(s.textures, dev)
+    s.settings.antialias = False
+    cfg = inv.train_config(s, args.depth)
+    tables = (integ.to_device(s.geoms, dev), integ.to_device(s.meshes, dev),
+              texfetch.fuse(integ.to_device(s.textures, dev)))
+    packed = tuple(integ.to_device(p, dev) for p in s.packed_meshes)
 
     def render(params, seed, i):
         with torch.no_grad():
-            return inv.render_image(params, geoms, meshes, textures,
-                                    inv.step_generator(seed, i, dev), cfg)
+            return inv.render_image(params, *tables,
+                                    inv.step_generator(seed, i, dev), cfg,
+                                    packed)
 
     true_params = inv.params_from_scene(s, dev)
     target = torch.stack([render(true_params, 0, i)
                           for i in range(8)]).mean(0)
-    params = inv.params_from_scene(s, dev)
-    with torch.no_grad():
-        params.materials.color[1] = torch.tensor([0.2, 0.6, 0.3])
+    true_albedo = s.materials.color[1].tolist()
+    s.materials.color[1] = torch.tensor([0.2, 0.6, 0.3])
+    # InverseRenderer.fit's steps one at a time, to log the albedo: on the
+    # card each form's steps replay its captured train-step graph
+    ir = inv.InverseRenderer(s, target.cpu().numpy(), learning_rate=args.lr,
+                             trace_depth=args.depth, seed=11,
+                             history=args.history, device=args.device)
+    params = ir.params
     for leaf in inv.param_leaves(params):
         if leaf is not params.materials.color:
             leaf.requires_grad_(False)
     initial_img = render(params, 0, 0)
 
-    step = inv.make_train_step(geoms, meshes, textures, cfg, args.lr)
-    hstep = inv.make_train_step(geoms, meshes, textures, cfg, args.lr,
-                                history=True)
-    opt_state = optim.init(inv.param_leaves(params))
-    hist = render(params, 777, 0) if args.history else None
     polish_from = args.steps - (args.polish if args.history else 0)
     tail_start = (args.steps - max(10, args.polish - 15)
                   if args.history and args.polish else args.steps * 3 // 5)
     tail = []
+    synchronize(dev)
+    t0 = time.perf_counter()
     for i in range(args.steps):
-        gen = inv.step_generator(11, i, dev)
-        if args.history and i < polish_from:
-            params, opt_state, hist, loss = hstep(params, opt_state, hist,
-                                                  gen, target)
-        else:
-            params, opt_state, loss = step(params, opt_state, gen, target)
+        loss = ir.step(polish=i >= polish_from)
         albedo = params.materials.color[1].detach().cpu().numpy()
         if i >= tail_start:
             tail.append(albedo)
         if i % 50 == 0 or i == args.steps - 1:
-            print(json.dumps({"step": i, "loss": round(float(loss), 6),
+            print(json.dumps({"step": i, "loss": round(loss, 6),
                               "albedo": [round(float(v), 4)
                                          for v in albedo]}), flush=True)
+    synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / max(args.steps, 1)
+    print(json.dumps({"ms_per_step": ms, "device": (
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+        "res": args.res, "depth": args.depth,
+        "graph_replays": {k: g.replays if g is not None else 0
+                          for k, g in ir.graphs.items()}}), flush=True)
 
     recovered = np.stack(tail).mean(0)
     print(json.dumps({
-        "true_albedo": [round(float(v), 4) for v in
-                        s.materials.color[1].tolist()],
+        "true_albedo": [round(float(v), 4) for v in true_albedo],
         "start_albedo": [0.2, 0.6, 0.3],
         "recovered_albedo": [round(float(v), 4) for v in recovered]}))
 

@@ -1,6 +1,6 @@
 """Device resolution (the caller names the device, nothing is picked for
-it), timing on the card, and the capture of one iteration as a CUDA
-graph."""
+it), timing on the card, and the capture of one render iteration or one
+train step as a CUDA graph."""
 from __future__ import annotations
 
 import time
@@ -87,8 +87,8 @@ def _pool_bytes(pool) -> int:
 
 def capture_graph(fn: Callable[[], None], device: torch.device,
                   generators: Sequence[torch.Generator] = (),
-                  counters: Optional[Callable[[], Dict[str, int]]] = None
-                  ) -> CapturedGraph:
+                  counters: Optional[Callable[[], Dict[str, int]]] = None,
+                  pool=None) -> CapturedGraph:
     """Capture `fn()` as a CUDA graph on `device`'s side stream.
 
     `fn` must already have run once eagerly with the same shapes (that run
@@ -102,7 +102,16 @@ def capture_graph(fn: Callable[[], None], device: torch.device,
     increase during the capture is the graph's `launches`. The kernels'
     scratch (`stream_counter`) and launch tally (`utils.launches`) are
     made before the capture, outside the graph's pool. The graph keeps
-    its private memory pool, which is released with it."""
+    its private memory pool, which is released with it; with `pool` (an
+    earlier graph's `graph.pool()`) it allocates from that one instead,
+    which is sound where neither graph leaves a live tensor in the pool
+    and the two never replay at once.
+
+    A train step's backward is captured too: autograd runs it on its own
+    device thread, on the stream each forward op ran on (here the side
+    stream), and the capture takes every launch on that stream whichever
+    thread makes it; the gradients it allocates come from the graph's
+    pool and die inside the step."""
     from .launches import device_tally
     stream = capture_stream(device)
     stream_counter(device, stream.cuda_stream)
@@ -116,7 +125,7 @@ def capture_graph(fn: Callable[[], None], device: torch.device,
     stream.wait_stream(torch.cuda.current_stream(device))
     t0 = time.perf_counter()
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        graph.capture_begin()
+        graph.capture_begin(pool=pool)
         try:
             fn()
         except BaseException:

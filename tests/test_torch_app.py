@@ -253,6 +253,17 @@ def test_render_samples():
     assert got.shape == (16, 16, 3) and float(got.mean()) > 0
 
 
+def test_render_samples_is_exported():
+    """`render_samples` is importable from the package, as the JAX
+    package's __init__ exports it."""
+    import project3_cuda_path_tracer_tpu as jax_pkg
+    import project3_cuda_path_tracer_tpu_torch as pkg
+    from project3_cuda_path_tracer_tpu_torch import render_samples
+    assert render_samples is PI.render_samples
+    assert hasattr(jax_pkg, "render_samples") and hasattr(pkg,
+                                                          "render_samples")
+
+
 def test_inverse_demo_moves_toward_the_true_albedo(tmp_path, capsys):
     """tools/inverse_demo.py on the CPU at 16x16: the albedo moves from
     its perturbed start toward the true white, and the PNGs are

@@ -19,18 +19,15 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from project3_cuda_path_tracer_tpu import Renderer as JaxRenderer
 from project3_cuda_path_tracer_tpu import load_scene as jax_load_scene
 from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
-from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
 from project3_cuda_path_tracer_tpu_torch.render import adaptive as A
 from project3_cuda_path_tracer_tpu_torch.render import integrator as I
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
 from test_torch_megakernel import assert_lane_contract
+from torch_audit import host_round_trips
 
 torch.set_num_threads(2)
 
@@ -213,98 +210,33 @@ def test_iteration_body_matches_step(config):
         assert float(r._count.max()) > float(r._count.min())  # replanned
 
 
-class _HostRoundTrips(TorchDispatchMode):
-    """Records the ops that read a device value on the host or index by a
-    boolean mask (a sync on the card, an error under a capture); the
-    plain versions of the kernels, which the card replaces, are skipped
-    (`paused`)."""
-
-    SYNCS = {torch.ops.aten._local_scalar_dense.default,
-             torch.ops.aten.nonzero.default,
-             torch.ops.aten.masked_select.default,
-             torch.ops.aten.equal.default,
-             torch.ops.aten.is_nonzero.default}
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-        self.paused = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not self.paused:
-            name = str(func)
-            if (func in self.SYNCS or "unique" in name
-                    or "repeat_interleave" in name):
-                self.hits.append(name)
-            if func in (torch.ops.aten.index.Tensor,
-                        torch.ops.aten.index_put_.default):
-                if any(t is not None and t.dtype == torch.bool
-                       for t in args[1]):
-                    self.hits.append(name + " by a mask")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("config", list(CONFIGS) + list(AUDIT_ONLY))
 def test_iteration_body_makes_no_host_round_trip(config, monkeypatch):
     """After the eager iteration that builds the lazy tables, the body
     runs no op that reads a device value on the host or gathers by a
     mask, and copies nothing from the host: a capture would fail on
-    either."""
+    either (tests/torch_audit.py)."""
     r = _renderer(config)
     r.step()
-    audit = _HostRoundTrips()
-    for mod, name in ((P8, "traverse8_plain"),
-                      (PPB, "traverse_binary_plain"),
-                      (P1, "gather_plain")):
-        plain = getattr(mod, name)
-
-        def paused(*args, _plain=plain, **kwargs):
-            audit.paused += 1
-            try:
-                return _plain(*args, **kwargs)
-            finally:
-                audit.paused -= 1
-        monkeypatch.setattr(mod, name, paused)
-    copies = []
-    for name in ("tensor", "as_tensor"):
-        make = getattr(torch, name)
-
-        def spy(data, *args, _make=make, **kwargs):
-            if (kwargs.get("device") is not None
-                    and not isinstance(data, torch.Tensor)):
-                copies.append(repr(data)[:40])
-            return _make(data, *args, **kwargs)
-        monkeypatch.setattr(torch, name, spy)
-    r._prepare()
-    gens = r._draws()
-    with audit:
-        r._iterate(*gens)
-    assert audit.hits == [] and copies == []
+    with host_round_trips(monkeypatch) as audit:
+        r._prepare()
+        gens = r._draws()
+        with audit:
+            r._iterate(*gens)
+    assert audit.hits == [] and audit.copies == []
 
 
-def test_mesh_body_makes_no_host_round_trip(tmp_path):
+def test_mesh_body_makes_no_host_round_trip(tmp_path, monkeypatch):
     """The same audit on a mesh scene, K2's plain traversal skipped (on
     the card the kernel runs there, launched without a host query)."""
     r = Renderer(load_scene(_pyramid(tmp_path)), device="cpu")
     assert r.route == "wavefront"
     r.step()
-    audit = _HostRoundTrips()
-    plain = P8.traverse8_plain
-
-    def paused(*args, **kwargs):
-        audit.paused += 1
-        try:
-            return plain(*args, **kwargs)
-        finally:
-            audit.paused -= 1
-    P8.traverse8_plain, saved = paused, P8.traverse8_plain
-    try:
+    with host_round_trips(monkeypatch) as audit:
         r._prepare()
         gens = r._draws()
         with audit:
             r._iterate(*gens)
-    finally:
-        P8.traverse8_plain = saved
     assert audit.hits == []
 
 

@@ -964,3 +964,83 @@ def test_failing_capture_raises_on_card(monkeypatch):
     assert r.graph is None and r.iteration == 1
     monkeypatch.setattr(I, "to_image", to_image)
     assert float(x.sum()) == 8.0  # the context survives the failed capture
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cornell_history", "cornell_two_render",
+                                  "textured_history"])
+def test_train_scan_replays_equal_eager_loop_on_card(case):
+    """make_train_scan on the card (one eager step, the capture, replays;
+    a second call replays the same graph) against the loop of
+    make_train_step calls, at 64x64 depth 4, by chip_smoke.py's rule: one
+    eager step run twice from one state sets the spread (0 when the two
+    agree bit for bit, which then the graph must too); the graph's state
+    (losses, leaves, mu, nu, count, history) is within it. On textured_env
+    (remat by the rule) K2 and P1 run inside the graph: the kernels' device
+    tallies equal the eager step's launches plus the capture's count a
+    replay."""
+    _need_card()
+    from project3_cuda_path_tracer_tpu_torch.models import inverse as inv
+    from project3_cuda_path_tracer_tpu_torch.models import optim
+    from project3_cuda_path_tracer_tpu_torch.render import integrator as I
+    history = case.endswith("history")
+    scene = _textured(64) if case.startswith("textured") else _cornell(64)
+    scene.settings.trace_depth = 4
+    dev = torch.device("cuda")
+    cfg = inv.train_config(scene)
+    assert cfg.remat == case.startswith("textured")
+    tables = (I.to_device(scene.geoms, dev), I.to_device(scene.meshes, dev),
+              texfetch.fuse(I.to_device(scene.textures, dev)))
+    packed = tuple(I.to_device(p, dev) for p in scene.packed_meshes)
+    rng = np.random.default_rng(0)
+    target = torch.from_numpy(rng.random((64, 64, 3), np.float32) * .5).to(
+        dev)
+    hist0 = torch.from_numpy(rng.random((64, 64, 3), np.float32)).to(dev)
+    step = inv.make_train_step(*tables, cfg, packed_meshes=packed,
+                               history=history)
+
+    def start():
+        p = inv.params_from_scene(scene, dev)
+        return p, optim.init(inv.param_leaves(p)), hist0.clone()
+
+    def eager(state, seed, n):
+        p, s, h = state
+        losses = []
+        for i in range(n):
+            gen = inv.step_generator(seed, i, dev)
+            if history:
+                p, s, h, loss = step(p, s, h, gen, target)
+            else:
+                p, s, loss = step(p, s, gen, target)
+            losses.append(loss)
+        return p, s, h if history else None, torch.stack(losses)
+
+    spread = inv.train_state_gap(eager(start(), 7, 1), eager(start(), 7, 1))
+    run = inv.make_train_scan(*tables, cfg, num_steps=3,
+                              packed_meshes=packed, history=history)
+    want = eager(start(), 7, 3)
+    launches.zero_launch_counts()
+    p, s, h = start()
+    got = run(p, s, h, 7, target) if history else run(p, s, 7, target)
+    torch.cuda.synchronize()
+    ran, wrappers = launches.device_launches(), launches.launch_counts()
+    got = got if history else (got[0], got[1], None, got[2])
+    gap = inv.train_state_gap(got, want)
+    assert all(gap[k] <= spread[k] for k in gap), (gap, spread)
+    g = run.train_graph.graph
+    assert g is not None and g.replays == 2 and g.pool_bytes > 0
+    # the eager step's wrapper counts and the capture's are one step's
+    assert {k: ran[k] for k in ("k2", "p1")} == {
+        k: wrappers[k] // 2 + 2 * g.launches[k] for k in ("k2", "p1")}
+    if case.startswith("textured"):
+        assert g.launches["k2"] == g.launches["p1"] == 8  # 4 bounces, remat
+    # the next call: replays alone, from fresh tensors
+    want2 = eager(inv.copy_train_state(*want[:3]), 8, 3)
+    nxt = inv.copy_train_state(*got[:3])
+    got2 = (run(*nxt, 8, target) if history
+            else run(nxt[0], nxt[1], 8, target))
+    got2 = got2 if history else (got2[0], got2[1], None, got2[2])
+    gap2 = inv.train_state_gap(got2, want2)
+    assert all(gap2[k] <= spread[k] for k in gap2), (gap2, spread)
+    assert run.train_graph.graph is g and g.replays == 5
+
