@@ -17,6 +17,7 @@ the card, gloo on the CPU. `--preview PORT` serves the HTTP preview
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -120,7 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "Inf, naming the iteration")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", action="store_true",
-                   help="emit a JSON-line metrics record to stderr")
+                   help="emit a JSON-line metrics record to stderr; the "
+                        "final one adds the program's spans (count and "
+                        "total ms by name) and each captured graph's "
+                        "nodes")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to render (default cuda; never chosen for "
                         "you: cuda without a card is an error)")
@@ -200,8 +204,14 @@ def main(argv=None) -> int:
         from .preview import PreviewServer
         preview_srv = PreviewServer(renderer, port=args.preview).start()
         say(f"live preview at http://127.0.0.1:{preview_srv.port}/")
+    from ..utils import profiling
+    if args.metrics:
+        profiling.clear()
     try:
-        return _render(args, scene, renderer, base, rank, say, preview_srv)
+        with (profiling.recording() if args.metrics
+              else contextlib.nullcontext()):
+            return _render(args, scene, renderer, base, rank, say,
+                           preview_srv)
     finally:
         if preview_srv is not None:
             preview_srv.stop()
@@ -296,8 +306,26 @@ def _render(args, scene, renderer, base, rank, say, preview_srv) -> int:
                         gamma=args.gamma, aces=args.aces)
     say(f"saved {out}")
     if args.metrics and rank == 0:
-        metrics.emit(final=True, output=out, device=str(renderer.device))
+        metrics.emit(final=True, output=out, device=str(renderer.device),
+                     **_program_record())
     return 0
+
+
+def _program_record() -> dict:
+    """The final metrics line's reading of the program's recorder
+    (utils/profiling): `spans`, each span's count and total ms by name,
+    and `graph_nodes`, each captured graph's nodes and kernel nodes by
+    graph name."""
+    from ..utils import profiling
+    c = profiling.counters()
+    graphs = sorted(k[:-len(".graph_nodes")] for k in c
+                    if k.endswith(".graph_nodes"))
+    return dict(
+        spans={n: dict(count=k, ms=1e3 * t) for n, (k, t) in
+               sorted(profiling.span_totals().items())},
+        graph_nodes={g: dict(nodes=c[g + ".graph_nodes"],
+                             kernel_nodes=c.get(g + ".kernel_nodes"))
+                     for g in graphs})
 
 
 if __name__ == "__main__":

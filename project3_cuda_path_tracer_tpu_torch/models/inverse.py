@@ -48,6 +48,7 @@ from ..render import integrator as integ
 from ..scene import types as T
 from ..utils.device import CapturedGraph, capture_graph, resolve_device
 from ..utils.launches import launch_counts
+from ..utils.profiling import span
 
 
 class RenderParams(NamedTuple):
@@ -342,11 +343,14 @@ class TrainGraph:
     def unload(self, params: RenderParams):
         """The buffers' state out to the caller: its leaves overwritten in
         place (as the eager step's Adam does), with copies of the Adam state
-        and of the history. Returns (params, opt_state, hist)."""
-        for t, buf in zip(param_leaves(params), param_leaves(self.params)):
-            t.copy_(buf)
-        return (params, optim.copy_state(self.opt_state),
-                None if self.hist is None else self.hist.clone())
+        and of the history (the span `train.unload`). Returns (params,
+        opt_state, hist)."""
+        with span("train.unload"):
+            for t, buf in zip(param_leaves(params),
+                              param_leaves(self.params)):
+                t.copy_(buf)
+            return (params, optim.copy_state(self.opt_state),
+                    None if self.hist is None else self.hist.clone())
 
     @property
     def captures(self) -> bool:
@@ -366,12 +370,13 @@ class TrainGraph:
     def _prepare(self, seed: int, i: int) -> None:
         """The host's part of step i: a new capture after a change of which
         leaves require grad, the generator reseeded, the iteration into
-        `it_t`."""
-        flags = tuple(p.requires_grad for p in param_leaves(self.params))
-        if flags != self._flags:
-            self._flags, self.graph, self._warm = flags, None, False
-        self.generator.manual_seed(mk.seed32(seed, i))
-        self.it_t.fill_(i)
+        `it_t` (the span `train.prepare`)."""
+        with span("train.prepare"):
+            flags = tuple(p.requires_grad for p in param_leaves(self.params))
+            if flags != self._flags:
+                self._flags, self.graph, self._warm = flags, None, False
+            self.generator.manual_seed(mk.seed32(seed, i))
+            self.it_t.fill_(i)
 
     def _run(self) -> None:
         """The body on the buffers: what the graph holds. It makes no host
@@ -395,13 +400,17 @@ class TrainGraph:
             self.graph = capture_graph(
                 self._run, self.device, generators=[self.generator],
                 counters=launch_counts,
-                pool=None if other is None else other.graph.pool())
+                pool=None if other is None else other.graph.pool(),
+                name="train")
         self.graph.replay()
 
 
 class TrainScan:
     """The function `make_train_scan` returns: `num_steps` steps of a
-    `TrainGraph` a call, which it keeps across calls (`train_graph`)."""
+    `TrainGraph` a call, which it keeps across calls (`train_graph`). The
+    copy-in is the span `train.load`, each step's host part
+    `train.prepare`, a replay `train.replay`, the copy-out
+    `train.unload`."""
 
     def __init__(self, body, num_steps: int, history: bool,
                  stratified: bool):
@@ -418,7 +427,8 @@ class TrainScan:
         elif target.device != g.device:
             raise ValueError(f"this run's graph is on {g.device}, the "
                              f"target on {target.device}")
-        g.load(params, opt_state, hist, target)
+        with span("train.load"):
+            g.load(params, opt_state, hist, target)
         losses = torch.empty((self.num_steps,), dtype=torch.float32,
                              device=g.device)
         for i in range(self.num_steps):

@@ -63,6 +63,7 @@ from ..utils import image as img_io
 from ..utils.device import (CapturedGraph, capture_graph, resolve_device,
                             synchronize)
 from ..utils.launches import launch_counts
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -820,7 +821,8 @@ def render_chunk(renderer: "Renderer", n: int) -> None:
             r._capture()
     for _ in range(n):
         r._prepare()
-        r._draws()
+        with span("render.draws"):
+            r._draws()
         r._graph.replay()
         r.iteration += 1
 
@@ -1172,10 +1174,12 @@ class Renderer:
     def _prepare(self) -> None:
         """The host's part of a wavefront iteration: the replan at an
         adaptive epoch boundary, then the iteration index into the device
-        tensor `_it_t` that the iteration reads."""
-        if self.cfg.adaptive and self.iteration >= self._next_replan:
-            self._replan()
-        self._it_t.fill_(self.iteration)
+        tensor `_it_t` that the iteration reads (the span
+        `render.prepare`)."""
+        with span("render.prepare"):
+            if self.cfg.adaptive and self.iteration >= self._next_replan:
+                self._replan()
+            self._it_t.fill_(self.iteration)
 
     def _iterate(self, generator: Optional[torch.Generator],
                  light_gen: Optional[torch.Generator]) -> None:
@@ -1231,12 +1235,13 @@ class Renderer:
                 self.step()
 
     def _capture(self) -> None:
-        """Capture `_iterate` with the persistent generators registered."""
+        """Capture `_iterate` with the persistent generators registered, as
+        the graph "render"."""
         gens = self._draws()
         self._graph = capture_graph(
             lambda: self._iterate(*gens), self.device,
             generators=[g for g in gens if g is not None],
-            counters=launch_counts)
+            counters=launch_counts, name="render")
 
     @property
     def graph(self) -> Optional[CapturedGraph]:
@@ -1365,10 +1370,16 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         """Mean over samples, x-mirrored like saveImage (src/main.cpp:83-89);
-        under adaptive sampling each pixel over its own count."""
-        if self.cfg.adaptive:
-            return self._mean().cpu().numpy()[:, ::-1, :]
-        return self.accum.cpu().numpy()[:, ::-1, :] / max(self.iteration, 1)
+        under adaptive sampling each pixel over its own count. The spans
+        `readback.copy` (the device-to-host copy) and `readback.host` (the
+        mirror and division on the host)."""
+        with span("readback.copy"):
+            host = (self._mean() if self.cfg.adaptive
+                    else self.accum).cpu()
+        with span("readback.host"):
+            img = host.numpy()[:, ::-1, :]
+            return img if self.cfg.adaptive else \
+                img / max(self.iteration, 1)
 
     def denoised_accum(self) -> torch.Tensor:
         """The accumulator filtered by the à-trous denoiser

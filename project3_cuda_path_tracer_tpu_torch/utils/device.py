@@ -3,10 +3,13 @@ it), timing on the card, and the capture of one render iteration or one
 train step as a CUDA graph."""
 from __future__ import annotations
 
+import ctypes
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from . import profiling
 
 DEVICES = ("cuda", "cpu")
 
@@ -62,21 +65,73 @@ class CapturedGraph:
     a replay is expected to launch, and the kernels' device tallies
     (`utils.launches.device_launches`) count what ran.
     `capture_s` and `instantiate_s` are host seconds, `pool_bytes` the
-    device memory the graph's private pool holds."""
+    device memory the graph's private pool holds, `nodes` and
+    `kernel_nodes` the graph's nodes and kernel nodes as the CUDA runtime
+    counts them (`graph_node_counts`). `name` names its replay span
+    (`<name>.replay`) and node counter (`<name>.graph_nodes`)."""
 
     def __init__(self, graph, launches: Dict[str, int], capture_s: float,
-                 instantiate_s: float, pool_bytes: int):
+                 instantiate_s: float, pool_bytes: int, name: str = "graph",
+                 nodes: int = 0, kernel_nodes: int = 0):
         self.graph = graph
         self.launches = launches
         self.capture_s = capture_s
         self.instantiate_s = instantiate_s
         self.pool_bytes = pool_bytes
+        self.name = name
+        self.nodes = nodes
+        self.kernel_nodes = kernel_nodes
         self.replays = 0
+        self._span = name + ".replay"
 
     def replay(self) -> None:
-        """Launch the graph on the current stream."""
-        self.graph.replay()
+        """Launch the graph on the current stream (the span
+        `<name>.replay`: the host's `graph.replay()`, torch's generator
+        prologue and `cudaGraphLaunch`)."""
+        with profiling.span(self._span):
+            self.graph.replay()
         self.replays += 1
+
+
+_GRAPH_API = None
+KERNEL_NODE = 0   # cudaGraphNodeTypeKernel
+
+
+def _graph_api():
+    """(cudaGraphGetNodes, cudaGraphNodeGetType) of the CUDA runtime that
+    torch loaded, found by its soname."""
+    global _GRAPH_API
+    if _GRAPH_API is None:
+        rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+        get, typ = rt.cudaGraphGetNodes, rt.cudaGraphNodeGetType
+        get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.POINTER(ctypes.c_size_t)]
+        typ.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        _GRAPH_API = (get, typ)
+    return _GRAPH_API
+
+
+def graph_node_counts(graph) -> Tuple[int, int]:
+    """(nodes, kernel nodes) of a captured `torch.cuda.CUDAGraph` made with
+    `keep_graph=True`, from the CUDA runtime (`cudaGraphGetNodes`,
+    `cudaGraphNodeGetType` on `raw_cuda_graph()`)."""
+    get, typ = _graph_api()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = get(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if err == 0:
+        err = get(raw, nodes, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"counting a graph's nodes failed: error {err}")
+    kind, kernels = ctypes.c_int(-1), 0
+    for i in range(n.value):
+        err = typ(nodes[i], ctypes.byref(kind))
+        if err != 0:
+            raise RuntimeError(f"reading a graph node's type failed: "
+                               f"error {err}")
+        kernels += kind.value == KERNEL_NODE
+    return n.value, kernels
 
 
 def _pool_bytes(pool) -> int:
@@ -88,7 +143,7 @@ def _pool_bytes(pool) -> int:
 def capture_graph(fn: Callable[[], None], device: torch.device,
                   generators: Sequence[torch.Generator] = (),
                   counters: Optional[Callable[[], Dict[str, int]]] = None,
-                  pool=None) -> CapturedGraph:
+                  pool=None, name: str = "graph") -> CapturedGraph:
     """Capture `fn()` as a CUDA graph on `device`'s side stream.
 
     `fn` must already have run once eagerly with the same shapes (that run
@@ -105,7 +160,10 @@ def capture_graph(fn: Callable[[], None], device: torch.device,
     its private memory pool, which is released with it; with `pool` (an
     earlier graph's `graph.pool()`) it allocates from that one instead,
     which is sound where neither graph leaves a live tensor in the pool
-    and the two never replay at once.
+    and the two never replay at once. After the timed capture and
+    instantiation the graph's nodes are counted (`graph_node_counts`) and
+    kept as the counter `<name>.graph_nodes`; `name` also names the
+    replay's span.
 
     A train step's backward is captured too: autograd runs it on its own
     device thread, on the stream each forward op ran on (here the side
@@ -141,8 +199,11 @@ def capture_graph(fn: Callable[[], None], device: torch.device,
     t2 = time.perf_counter()
     after = dict(counters()) if counters is not None else {}
     launches = {k: after[k] - before.get(k, 0) for k in after}
+    nodes, kernel_nodes = graph_node_counts(graph)
+    profiling.set_counter(name + ".graph_nodes", nodes)
+    profiling.set_counter(name + ".kernel_nodes", kernel_nodes)
     return CapturedGraph(graph, launches, t1 - t0, t2 - t1,
-                         _pool_bytes(graph.pool()))
+                         _pool_bytes(graph.pool()), name, nodes, kernel_nodes)
 
 
 def synchronize(device: torch.device) -> None:

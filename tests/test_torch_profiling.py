@@ -1,7 +1,7 @@
 """Tracing and profiling in the torch port (utils/profiling.py): the
 counterpart of the JAX tests/test_profiling.py contract (a timed call is
 waited for, `sync` takes nests and non-tensors, `ab_compare` times every
-variant) and the trace: a Chrome trace file with the named spans."""
+variant) and the trace: a Chrome trace file with the program's spans."""
 import json
 import time
 
@@ -40,11 +40,16 @@ def test_ab_compare_returns_all_variants():
 
 @pytest.mark.parametrize("span", ["shade", "intersect"])
 def test_trace_writes_chrome_trace_with_named_spans(tmp_path, span):
+    """A program span inside trace() lands in its Chrome trace, on the
+    program span track; it is no profiler range, so the profiler's own
+    records (and its sums by op) do not hold it."""
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.named(span):
+        with profiling.span(span):
             torch.ones(64, 64) @ torch.ones(64, 64)
     names = {ev.key for ev in prof.key_averages()}
-    assert span in names
+    assert span not in names and "aten::mm" in names
+    assert [n for n, _, _ in profiling.spans()][-1] == span
     with open(tmp_path / profiling.TRACE_FILE) as f:
         events = json.load(f)["traceEvents"]
-    assert any(ev.get("name") == span for ev in events)
+    assert any(ev.get("name") == span and ev.get("cat") == "program_span"
+               and ev.get("tid") == profiling.SPAN_TRACK for ev in events)

@@ -149,6 +149,9 @@ def test_cli_end_to_end(tmp_path, capsys):
     rec = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
     assert rec["iters"] == 2 and rec["resolution"] == [32, 32]
     assert rec["trace_depth"] == 2 and rec["output"] == str(png)
+    # the program's recorder: K1's route records no span, the CPU
+    # captures no graph
+    assert rec["spans"] == {} and rec["graph_nodes"] == {}
 
 
 @pytest.mark.parametrize("flag", ["--sharded", "--snapshot-every=4",
@@ -230,6 +233,10 @@ def _run_cli(scene, flags, tmp_path, capsys):
     assert "route=wavefront" in err and "features dropped" not in err
     rec = json.loads(err.strip().splitlines()[-1])
     assert rec["iters"] == 2 and rec["output"] == str(png)
+    # --metrics records the program's spans: a wavefront iteration's
+    # host part each iteration
+    assert rec["spans"]["render.prepare"]["count"] == 2
+    assert rec["spans"]["render.prepare"]["ms"] > 0
 
 
 @pytest.mark.parametrize("flags", [["--nee"], ["--nee-ris", "2"],
