@@ -2168,6 +2168,82 @@ def train_phases(gpu: str) -> None:
         raise AssertionError(f"fit recovered {got}, not 0.98 +- 0.2")
 
 
+def g1_entry(g1: dict, train_graph: dict) -> dict:
+    """G1's entry of the `kernels` line: the cornell [M,3] field's record
+    of `g1_phase` and the launches of the cornell 800x800 train scan."""
+    rec = g1["records"][0]
+    return {"name": "mat_grad", "route": "cuda",
+            "source": f"{PKG}/csrc/mat_grad.cu", "replaces": None,
+            "launches": train_graph["cornell_800"]["mat_grad_launches"],
+            "launches_per_train_step":
+                train_graph["cornell_800"]["mat_grad_per_replay"],
+            **{k: rec[k] for k in ("value", "cold_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "share_of_bound", "bitwise")}}
+
+
+def g1_phase(gpu: str) -> dict:
+    """G1 (csrc/mat_grad.cu), the backward of the material gather, on the
+    cornell train step's shapes: 640,000 lanes over its 5 materials, an
+    [M,3] field's three gradient planes and an [M] field's one, the lanes'
+    materials drawn at random or all one (index_put_'s worst case), and
+    manylights256's 258 materials. Each: bit for bit against
+    `mat_grad_plain` run on the card and against a second run; held time
+    (stream held, 20 calls) and cold (each call after a 128 MB write); the
+    bytes bound (mat_id and the planes read once); the plain version's
+    time; index_put_(accumulate=True) into zeros, the backward torch gives
+    the gather, as `library_ms`. Returns the records for the `kernels`
+    line."""
+    from project3_cuda_path_tracer_tpu_torch.ops import matgrad as MG
+    from project3_cuda_path_tracer_tpu_torch.utils.device import (
+        time_cold_ms, time_ms as held_ms)
+    dev = torch.device("cuda")
+    n = 800 * 800
+    rng = np.random.default_rng(18)
+    recs = []
+    for m, c, kind in ((5, 3, "random"), (5, 1, "random"),
+                       (5, 3, "one material"), (258, 3, "random")):
+        ids = torch.from_numpy(np.full(n, 3) if kind == "one material"
+                               else rng.integers(0, m, n)).to(dev)
+        planes = [torch.from_numpy(rng.standard_normal(n, np.float32)).to(
+            dev) for _ in range(c)]
+        stacked = torch.stack(planes, -1) if c == 3 else planes[0]
+
+        def kernel():
+            return MG.mat_grad(ids, planes, m)
+
+        def plain():
+            return MG.mat_grad_plain(ids, planes, m)
+
+        def library():
+            return torch.zeros((m, c) if c == 3 else (m,),
+                               device=dev).index_put_((ids,), stacked,
+                                                      accumulate=True)
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        repeat = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        gap = float((got - library().view(m, c)).abs().max())
+        held = [held_ms(kernel, 20, warm=3) for _ in range(2)]
+        cold = time_cold_ms(kernel, 5)
+        rec = dict(metric="G1_mat_grad_ms", materials=m, planes=c, lanes=n,
+                   ids=kind, value=float(np.mean(held)), held_runs=held,
+                   cold_ms=float(np.median(cold)), cold_runs=cold,
+                   plain_ms=held_ms(plain, 5, warm=1),
+                   library_ms=held_ms(library, 5, warm=1),
+                   bitwise=bitwise, repeat_bitwise=repeat,
+                   max_gap_to_library=gap, **bound(n * (8 + 4 * c), 0),
+                   gpu=gpu)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["value"]
+        rec["cold_share_of_bound"] = rec["bound_ms"] / rec["cold_ms"]
+        log(json.dumps(rec))
+        recs.append(rec)
+        if not (bitwise and repeat):
+            raise AssertionError(f"G1 {m}x{c} {kind}: bitwise {bitwise}, "
+                                 f"repeat {repeat}")
+    return dict(records=recs)
+
+
 # ---------------------------------------------------------------------------
 # The train step as one captured graph (slice J)
 # ---------------------------------------------------------------------------
@@ -2561,11 +2637,20 @@ def train_graph_phases(gpu: str, target: torch.Tensor) -> dict:
                    eager_ms=a["ms_per_step_eager"],
                    graph_ms=a["second_call"]["ms_per_step_graph"],
                    eager_ms_second=a["second_call"]["ms_per_step_eager"],
-                   bitwise=a["bitwise"], pool_bytes=a["pool_bytes"]),
+                   bitwise=a["bitwise"], deterministic=a["deterministic"],
+                   pool_bytes=a["pool_bytes"],
+                   mat_grad_per_replay=a["launches_per_replay"]["mat_grad"],
+                   mat_grad_launches=a["device_launches"]["mat_grad"]),
                gpu=gpu)
     log(json.dumps(dict(metric="train_graph_summary", **out)))
     if k1:
         raise AssertionError(f"train graph: K1 launched {k1} times")
+    # G1 keeps two eager cornell steps bit for bit, and so the graph
+    if not (a["deterministic"] and a["bitwise"]
+            and a["launches_per_replay"]["mat_grad"] > 0):
+        raise AssertionError(f"cornell 800 train graph: {out['cornell_800']}"
+                             f", nondeterministic ops "
+                             f"{a['nondeterministic_ops']}")
     if not tallies_ok:
         raise AssertionError(f"textured train graph: K2/P1 launches {ran}, "
                              f"{per} a replay, wrappers {wrappers}")
@@ -3663,11 +3748,14 @@ def train_textured_phases(gpu: str) -> dict:
     del tex
     # sdf.txt takes remat by the rule (the eager march's saved planes);
     # dispersion.txt does not. The schedules the rule leaves out are not
-    # run (their times are in PERF.md section 5).
+    # run (their times are in PERF.md section 5). Neither launches a
+    # traversal or fetch kernel; G1 runs in every step's backward.
     for name, rule_remat in (("sdf", True), ("dispersion", False)):
         rule = train_step_run(name, gpu)["rec"]
-        if not (rule["remat"] == rule_remat
-                and not any(rule["counts"].values())):
+        counts = rule["counts"]
+        if not (rule["remat"] == rule_remat and counts["mat_grad"] > 0
+                and not any(v for k, v in counts.items()
+                            if k != "mat_grad")):
             raise AssertionError(f"{name} train step: {rule}")
         recs[name] = rule
     for name in ("textured_env", "sdf", "dispersion"):
@@ -4187,7 +4275,7 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary",
-                                 "gather", "extract_cost"])
+                                 "gather", "extract_cost", "mat_grad"])
     log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
                         libraries={k: os.path.relpath(v, ROOT)
                                    for k, v in libs.items()})))
@@ -4328,6 +4416,8 @@ def main() -> int:
     # ---- 9. the train step --------------------------------------------------
     train_phases(gpu)
     mark("train")
+    g1 = g1_phase(gpu)
+    mark("g1")
     train_graph = train_graph_phases(gpu, r.accum / r.iteration)
     mark("train_graph")
 
@@ -4419,7 +4509,8 @@ def main() -> int:
             "cornell": launches,
             "preview after an orbit": app["preview"]["k1_launches"]},
         "max_abs_err": main_cmp["max_abs_err"],
-        "library_ms": None, **k1}] + mesh + probes}), flush=True)
+        "library_ms": None, **k1}] + mesh + probes
+        + [g1_entry(g1, train_graph)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -315,8 +315,10 @@ def _program_record() -> dict:
     """The final metrics line's reading of the program's recorder
     (utils/profiling): `spans`, each span's count and total ms by name,
     and `graph_nodes`, each captured graph's nodes and kernel nodes by
-    graph name."""
-    from ..utils import profiling
+    graph name; and the hand kernels' counts (utils/launches):
+    `launches`, the wrappers' counters, and `device_launches`, the
+    kernels' own tallies on the card (graph replays included)."""
+    from ..utils import launches, profiling
     c = profiling.counters()
     graphs = sorted(k[:-len(".graph_nodes")] for k in c
                     if k.endswith(".graph_nodes"))
@@ -325,7 +327,9 @@ def _program_record() -> dict:
                sorted(profiling.span_totals().items())},
         graph_nodes={g: dict(nodes=c[g + ".graph_nodes"],
                              kernel_nodes=c.get(g + ".kernel_nodes"))
-                     for g in graphs})
+                     for g in graphs},
+        launches=launches.launch_counts(),
+        device_launches=launches.device_launches())
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import bvh8 as B8
+from . import matgrad
 from . import pallas_bvh as PB
 from . import qmc
 from . import sdf as S
@@ -817,7 +818,13 @@ class ShadeOutP(NamedTuple):
 
 
 def _mat_select(table: torch.Tensor, mat_id: torch.Tensor):
-    """Per-lane material fetch from an [M] or [M,3] table."""
+    """Per-lane material fetch from an [M] or [M,3] table. A table that
+    takes a gradient goes through ops/matgrad.select: the same gather, with
+    a per-material sum (kernel G1 on the card) as its backward in place of
+    index_put_'s."""
+    if table.requires_grad and torch.is_grad_enabled():
+        rows = matgrad.select(table, mat_id)
+        return rows if table.ndim == 1 else V3(*rows)
     rows = table[mat_id]
     if table.ndim == 1:
         return rows

@@ -152,6 +152,9 @@ def test_cli_end_to_end(tmp_path, capsys):
     # the program's recorder: K1's route records no span, the CPU
     # captures no graph
     assert rec["spans"] == {} and rec["graph_nodes"] == {}
+    # the hand kernels' counts, G1's among them (no tally on the CPU)
+    assert "mat_grad" in rec["launches"]
+    assert rec["device_launches"]["mat_grad"] == 0
 
 
 @pytest.mark.parametrize("flag", ["--sharded", "--snapshot-every=4",
