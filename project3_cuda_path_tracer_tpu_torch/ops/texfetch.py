@@ -14,7 +14,8 @@ launch) raises.
 `fuse` builds, once when a scene's textures reach their device, the
 concatenated atlas and env planes that the shader fetches hit and miss
 lanes from with one gather (JAX concatenates them inside every call); the
-env's texels start at index Ha*Wa.
+env's texels start at index Ha*Wa. It keeps the fused packed table's bytes
+as the counter `texfetch.table_bytes` (utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from ..scene import types as T
 from ..tools import exp_gather
+from ..utils.profiling import set_counter
 
 MAX_FETCHES = 2 ** 31 - 1  # P1's indices are int32
 
@@ -60,7 +62,9 @@ def fuse(textures: T.Textures) -> T.Textures:
     ne = tx.env.shape[0] * tx.env.shape[1]
     if not (full(tx.atlas_packed, na) and full(tx.env_packed, ne)):
         return tx
-    out = dict(fused_packed=torch.cat([tx.atlas_packed, tx.env_packed]))
+    fused = torch.cat([tx.atlas_packed, tx.env_packed])
+    set_counter("texfetch.table_bytes", fused.numel() * fused.element_size())
+    out = dict(fused_packed=fused)
     if full(tx.atlas_pair, na):
         env = tx.env_pair if full(tx.env_pair, ne) else tx.env_packed
         out["fused_pair"] = torch.cat([tx.atlas_pair, env])

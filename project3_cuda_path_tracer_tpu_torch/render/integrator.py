@@ -63,7 +63,7 @@ from ..utils import image as img_io
 from ..utils.device import (CapturedGraph, capture_graph, resolve_device,
                             synchronize)
 from ..utils.launches import launch_counts
-from ..utils.profiling import span
+from ..utils.profiling import set_counter, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1040,14 +1040,16 @@ class Renderer:
 
     def _load_tables(self) -> None:
         """The wavefront stages' tables on the device (the wavefront route's;
-        the megakernel route's G-buffer loads them at its first use)."""
+        the megakernel route's G-buffer loads them at its first use); the
+        textures' upload and fusion under the span `render.textures`."""
         if self.tables is not None:
             return
         dev, scene = self.device, self.scene
+        with span("render.textures"):
+            tex = texfetch.fuse(to_device(scene.textures, dev))
         self.tables = (to_device(scene.materials, dev),
                        scene.camera.flat(dev),
-                       to_device(scene.geoms, dev),
-                       texfetch.fuse(to_device(scene.textures, dev)))
+                       to_device(scene.geoms, dev), tex)
         self.packed_meshes = tuple(to_device(p, dev)
                                    for p in scene.packed_meshes)
         # the normal map's mesh tangents read the triangle bundle
@@ -1236,12 +1238,18 @@ class Renderer:
 
     def _capture(self) -> None:
         """Capture `_iterate` with the persistent generators registered, as
-        the graph "render"."""
+        the graph "render". On a scene with an atlas or an env map, the
+        graph's P1 launches a replay (`CapturedGraph.launches["p1"]`) are
+        kept as the counter `render.p1_launches`."""
         gens = self._draws()
         self._graph = capture_graph(
             lambda: self._iterate(*gens), self.device,
             generators=[g for g in gens if g is not None],
             counters=launch_counts, name="render")
+        tx = self.tables[3]
+        if tx.has_atlas or tx.has_env:
+            set_counter("render.p1_launches",
+                        self._graph.launches.get("p1", 0))
 
     @property
     def graph(self) -> Optional[CapturedGraph]:
@@ -1372,14 +1380,28 @@ class Renderer:
         """Mean over samples, x-mirrored like saveImage (src/main.cpp:83-89);
         under adaptive sampling each pixel over its own count. The spans
         `readback.copy` (the device-to-host copy) and `readback.host` (the
-        mirror and division on the host)."""
+        mirror and division on the host). The device runs no kernel here
+        beyond adaptive sampling's division, only the copy. On a card both
+        host buffers are page-locked blocks from torch's host cache, so the
+        copy engine fills the first without a staging copy and no call
+        faults in 50 MB of fresh pages at 2048²; the mirror moves whole
+        pixels (one item of 3 floats), not single floats. Bit for bit the
+        mirror of the accumulator's host copy divided by the count."""
+        pin = self.device.type == "cuda"
         with span("readback.copy"):
-            host = (self._mean() if self.cfg.adaptive
-                    else self.accum).cpu()
+            mean = self._mean() if self.cfg.adaptive else self.accum
+            host = torch.empty(mean.shape, dtype=mean.dtype, pin_memory=pin)
+            host.copy_(mean)
         with span("readback.host"):
-            img = host.numpy()[:, ::-1, :]
-            return img if self.cfg.adaptive else \
-                img / max(self.iteration, 1)
+            out = torch.empty(host.shape, dtype=host.dtype, pin_memory=pin)
+            src, img = host.numpy(), out.numpy()
+            h, w = src.shape[:2]
+            pixel = np.dtype((np.void, src.shape[2] * src.itemsize))
+            img.view(pixel).reshape(h, w)[...] = \
+                src.view(pixel).reshape(h, w)[:, ::-1]
+            if not self.cfg.adaptive:
+                np.divide(img, max(self.iteration, 1), out=img)
+            return img
 
     def denoised_accum(self) -> torch.Tensor:
         """The accumulator filtered by the à-trous denoiser

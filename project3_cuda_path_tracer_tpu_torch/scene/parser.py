@@ -20,7 +20,8 @@ tensors. Mesh, texture and env paths resolve relative to the scene file;
 each OBJ is loaded once (deduplicated by path), its BVH built
 (scene/bvh.py) and packed in the 8-wide layout of the traversal kernel
 (ops/bvh8.pack_all8). The images go into one vertical-strip atlas with
-their packed 32-bit planes (`_load_textures`). SDF objects fill
+their packed 32-bit planes (`_load_textures`, under the span
+`scene.textures`, utils/profiling.py). SDF objects fill
 Geoms.sdf_params and Scene.sdf_kinds (ops/sdf.py).
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..ops import sdf as S
 from ..ops.bvh8 import pack_all8
 from ..utils import image as img_io
 from ..utils import math as m
+from ..utils.profiling import span
 from . import types as T
 from .bvh import build_mesh_bundle
 
@@ -282,6 +284,8 @@ def load_scene(path: str) -> T.Scene:
     if mesh_paths:
         meshes = build_mesh_bundle(mesh_paths)
         packed = pack_all8(meshes)
+    with span("scene.textures"):
+        textures = _load_textures(mats, envmap_path, envsky)
 
     return T.Scene(
         camera=cam, settings=settings,
@@ -291,7 +295,7 @@ def load_scene(path: str) -> T.Scene:
                          for k, v in geom_tables.items()}),
         meshes=meshes, packed_meshes=packed,
         sdf_kinds=(tuple(g["sdf_kind"] for g in geoms) if has_sdf else ()),
-        textures=_load_textures(mats, envmap_path, envsky),
+        textures=textures,
         source_path=os.path.abspath(path))
 
 

@@ -6,7 +6,10 @@ inside a profiler a span lies within a `record_function` range around it,
 on the profiler's own timestamps (the shared clock); `step()`/`image()`
 and `render_chunk` record the render spans, `make_train_scan`'s calls the
 train spans (the graph's replay through a stand-in for the capture);
-`render_chunk` with spans on makes no host round trip. On a card
+`render_chunk` with spans on makes no host round trip; `image()` is the
+host mean bit for bit (on a card too); a textured scene's
+decode and upload record `scene.textures` and `render.textures` and set
+the counters `texfetch.table_bytes` and `render.p1_launches`. On a card
 (`cuda`-marked, skip here): a span around a synchronised kernel contains
 the kernel's profiler interval, and a captured graph's `kernel_nodes`
 equals the kernels its replay records. The file imports neither JAX nor
@@ -16,6 +19,7 @@ the JAX package:
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -158,6 +162,39 @@ def test_step_and_image_record_the_render_spans():
     assert (img == want).all()
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_image_is_the_host_mean_bit_for_bit(device):
+    """image(), which copies the accumulator once into page-locked memory
+    and mirrors whole pixels and divides on the host, equals the host
+    copy mirrored and divided by the iteration count in numpy, bit for
+    bit, for counts whose reciprocal is inexact; an image handed back
+    keeps its values through later calls (the host blocks are reused only
+    once it is gone). On the card image() runs no kernel, only the copy
+    (a frame's kernels are its iterations')."""
+    if device == "cuda":
+        _need_card()
+    r = Renderer(_cornell(nee=True), device=device)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    kept = []
+    for n in (3, 7, 282):
+        r.accum.copy_(torch.rand(r.accum.shape, generator=gen) * 300)
+        r.iteration = n
+        want = r.accum.cpu().numpy()[:, ::-1, :] / n
+        img = r.image()
+        assert img.dtype == np.float32 and (img == want).all()
+        kept.append((img, want))
+    assert all((img == want).all() for img, want in kept)
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r.image()
+            torch.cuda.synchronize()
+        assert _kernels(prof) == []
+
+
 def test_render_chunk_records_draws_and_replays(monkeypatch):
     """render_chunk's host loop, the graph a stand-in: after the eager
     first iteration and the capture, each iteration records
@@ -184,6 +221,104 @@ def test_render_chunk_with_spans_makes_no_host_round_trip(monkeypatch):
             I.render_chunk(r, 2)
     assert audit.hits == [] and audit.copies == []
     assert profiling.span_totals()["render.replay"][0] == 2
+
+
+def _capturing_stand_in(fn, device, name="graph", counters=None,
+                        **kwargs):
+    """A stand-in capture that, as a real one, runs the body's host code
+    once and keeps the counters' increase over it as the graph's
+    launches."""
+    before = dict(counters()) if counters is not None else {}
+    fn()
+    after = dict(counters()) if counters is not None else {}
+    return D.CapturedGraph(_Stand(fn), {k: after[k] - before.get(k, 0)
+                                        for k in after}, 0.0, 0.0, 0, name)
+
+
+def _counted_gather_plain(monkeypatch):
+    """P1's plain version counted as the kernel's wrapper counts a launch
+    (the CPU launches none)."""
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
+    plain = exp_gather.gather_plain
+
+    def counted(table, idx):
+        exp_gather.LAUNCHES += 1
+        return plain(table, idx)
+    monkeypatch.setattr(exp_gather, "gather_plain", counted)
+
+
+_TEXTURED = """ENVMAP {assets}/sky.hdr
+
+MATERIAL 0
+RGB .9 .9 .9
+TEXTURE {assets}/checker.png
+
+MATERIAL 1
+RGB .98 .98 .98
+SPECRGB .98 .98 .98
+REFR 1
+REFRIOR 1.5
+
+CAMERA
+RES 12 10
+FOVY 40
+ITERATIONS 5
+DEPTH 3
+FILE textured
+EYE 0 3.2 9
+LOOKAT 0 1.6 0
+UP 0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS 0 -0.1 0
+SCALE 24 .2 24
+
+OBJECT 1
+sphere
+material 1
+TRANS 2.6 1.1 1.2
+SCALE 2.2 2.2 2.2
+"""
+
+
+@pytest.mark.parametrize("textured", [True, False])
+def test_texture_spans_and_counters(monkeypatch, tmp_path, textured):
+    """A scene with a TEXTURE and an ENVMAP records `scene.textures` (the
+    decode in load_scene) and `render.textures` (the upload and fusion in
+    the Renderer) once each, and sets `texfetch.table_bytes` (the fused
+    atlas+env table: 512x512 + 512x256 texels of 4 bytes) and, at the
+    capture, `render.p1_launches` (the graph's P1 launches: one fused take
+    a bounce; P1's plain version stands in for the kernel). An untextured
+    scene (cornell) sets neither counter."""
+    monkeypatch.setattr(I, "capture_graph", _capturing_stand_in)
+    _counted_gather_plain(monkeypatch)
+    if textured:
+        path = tmp_path / "textured.txt"
+        path.write_text(_TEXTURED.format(assets=os.path.join(SCENES,
+                                                             "assets")))
+        with profiling.recording():
+            scene = load_scene(str(path))
+            scene.settings.stratified = True
+            r = Renderer(scene, device="cpu")
+    else:
+        with profiling.recording():
+            r = Renderer(_cornell(depth=3, nee=True), device="cpu")
+    assert r.route == "wavefront"
+    I.render_chunk(r, 1)
+    I.render_chunk(r, 2)
+    assert r.graph.replays == 2
+    totals, counters = profiling.span_totals(), profiling.counters()
+    assert totals["render.textures"][0] == 1
+    if textured:
+        assert totals["scene.textures"][0] == 1
+        assert counters["texfetch.table_bytes"] == (512 * 512
+                                                    + 512 * 256) * 4
+        assert counters["render.p1_launches"] == 3 == r.graph.launches["p1"]
+    else:
+        assert "texfetch.table_bytes" not in counters
+        assert "render.p1_launches" not in counters
 
 
 def test_train_scan_records_the_train_spans(monkeypatch):
@@ -351,3 +486,24 @@ def test_kernel_nodes_equal_a_replays_kernels_on_card(case, tmp_path):
             break
     assert got == reps * g.kernel_nodes
     assert profiling.span_totals()["render.replay"][0] >= reps
+
+
+@pytest.mark.cuda
+def test_p1_launches_counter_is_the_graph_s_on_card(tmp_path):
+    """On the card the textured scene's captured iteration holds one P1
+    launch a bounce, kept as `render.p1_launches`, and each replay runs
+    them (the kernel's own device tally)."""
+    _need_card()
+    from project3_cuda_path_tracer_tpu_torch.utils import launches as L
+    path = tmp_path / "textured.txt"
+    path.write_text(_TEXTURED.format(assets=os.path.join(SCENES, "assets")))
+    scene = load_scene(str(path))
+    scene.settings.stratified = True
+    r = Renderer(scene, device="cuda")
+    r.step_many(1)
+    r.step_many(2)
+    assert r.graph is not None and r.graph.launches["p1"] == 3
+    assert profiling.counters()["render.p1_launches"] == 3
+    L.zero_launch_counts()
+    r.step_many(2)
+    assert L.device_launches()["p1"] == 2 * 3
