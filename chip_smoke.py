@@ -118,11 +118,19 @@ once) and drives these paths:
     step_many(n) from the same start, bit for bit (accumulation,
     reservoir, adaptive sums and counts), then ms an iteration of both
     forms in turns, the kernels and device busy share of a replay (an
-    eager step's are the earlier paths'), K2/K3/P1 launches a replay (the
+    eager step's are the earlier paths'), K2/K3/P1/I1 launches a replay (the
     capture's count, held against the kernels' device tallies over the
     chunk and over one replay, beside the replay's kernels by name in
     torch.profiler's records), capture and instantiate seconds and the
     graph pool's bytes;
+  - I1, the analytic primitives' nearest hit (csrc/prim_hit.cu via
+    ops/primhit.py), on the bounce-0 and bounce-1 wavefronts of the three
+    render cells (mesh.txt 1024x1024, cornell 800x800 with NEE and its
+    shadow queries, textured_env 2048x2048 under the thin lens): bit for
+    bit against its plain chain on the card on every hit field, timed held
+    and cold beside its bytes bound and the plain chain, and its launches
+    over four iterations of each (one eager, then the captured graph's
+    replays), read from its device tally;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance (the
@@ -1296,7 +1304,8 @@ KERNEL_NAMES = {"k1": r"(?<!\w)megakernel(?!\w)",
                 "k2": r"(?<!\w)traverse8_kernel(?!\w)",
                 "k2_any_hit": r"(?<!\w)traverse8_kernel<\d+, true",
                 "k3_k4": r"(?<!\w)binary_kernel(?!\w)",
-                "p1": r"(?<!\w)gather_kernel(?!\w)"}
+                "p1": r"(?<!\w)gather_kernel(?!\w)",
+                "prim": r"(?<!\w)prim_hit_kernel(?!\w)"}
 
 
 def named_launches(prof) -> dict:
@@ -1312,7 +1321,7 @@ def named_launches(prof) -> dict:
 
 def measured_launches(fn) -> dict:
     """Run `fn()` with every count set to 0 just before it, and return the
-    launches that ran on the card: K2's, K3/K4's and P1's from the tallies
+    launches that ran on the card: K2's, K3/K4's, P1's and I1's from the tallies
     the kernels themselves keep in device memory
     (`utils.launches.device_launches`), K1's from its wrapper (its route
     never replays a graph); under "wrappers", the wrappers' counts over
@@ -2244,6 +2253,161 @@ def g1_phase(gpu: str) -> dict:
     return dict(records=recs)
 
 
+def prim_runs(cfg) -> int:
+    """The I1 launches of one `intersect_planar` under `cfg`: its runs of
+    CUBE/SPHERE geoms (outside the batched spheres) between SDF geoms."""
+    from project3_cuda_path_tracer_tpu_torch.scene import types as T
+    runs, open_run = 0, False
+    for g, t in enumerate(cfg.geom_types):
+        if t == T.SDF:
+            open_run = False
+        elif t in (T.CUBE, T.SPHERE) and g not in set(cfg.sphere_batch):
+            runs += not open_run
+            open_run = True
+    return runs
+
+
+def i1_entry(i1: dict) -> dict:
+    """I1's entry of the `kernels` line: mesh.txt's bounce-0 record of
+    `i1_phase` and the launches that ran on the card over each render
+    cell's chunk of I1_ITERS iterations (the capture's replays)."""
+    rec = i1["records"][0]
+    return {"name": "prim_hit", "route": "cuda",
+            "source": f"{PKG}/csrc/prim_hit.cu", "replaces": None,
+            "launches": sum(i1["launches"].values()),
+            "launches_by_path": i1["launches"],
+            "launches_per_iteration": i1["launches_per_iteration"],
+            "path": "mesh.txt 1024x1024 d8, bounce 0",
+            **{k: rec[k] for k in ("value", "cold_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "share_of_bound",
+                                   "bitwise")},
+            "library_ms": None}
+
+
+# the iterations of each render cell's chunk in `i1_phase`: the first
+# eager (the traced one), then the capture and a replay each
+I1_ITERS = 4
+
+
+def i1_phase(mesh_scene, gpu: str) -> dict:
+    """I1 (csrc/prim_hit.cu), the analytic primitives' nearest hit, on the
+    render cells' wavefronts: mesh.txt 1024x1024, cornell 800x800 with NEE
+    (bounce 0 and 1, nearest and shadow queries), textured_env 2048x2048
+    under the thin lens, each traced by the first (eager) iteration of a
+    Renderer's step_many(I1_ITERS), whose launches `measured_launches`
+    reads from the device tally: I1 must run 8 times an iteration on mesh
+    and textured_env and 15 on cornell (8 bounces, 7 shadow queries) in
+    the eager iteration and in each replay of the captured graph, which
+    holds as many. Each query: the kernel bit for bit against
+    `primitive_run_plain` on the card on every HitP field; held time
+    (stream held, 20 calls), cold (each call after a 128 MB write); the
+    bytes bound (the ray planes, the bound of a shadow query and the record
+    written once; a broadcast origin once); the plain chain's time.
+    Returns the records and the launches."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import primhit as I1
+    from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import V3
+    from project3_cuda_path_tracer_tpu_torch.scene import types as T
+    from project3_cuda_path_tracer_tpu_torch.utils.device import (
+        time_cold_ms, time_ms as held_ms)
+    t_start = time.perf_counter()
+    mesh = copy.deepcopy(mesh_scene)
+    cornell = sized(SCENE, 800, 8)
+    cornell.settings.nee = True
+    textured = load_scene(TEXTURED)
+    want_it = {"mesh": 8, "cornell_nee": 15, "textured_env": 8}
+    recs, ran_by_cell, per_replay = [], {}, {}
+    for cell, scene in (("mesh", mesh), ("cornell_nee", cornell),
+                        ("textured_env", textured)):
+        scene.settings.stratified = True
+        r = Renderer(scene, device="cuda")
+        if r.route != "wavefront":
+            raise AssertionError(f"{cell} takes the {r.route} route")
+        calls, real = [], wf.intersect_planar
+
+        def spy(o, d, times, geoms, types, *args, **kw):
+            if len(calls) < (4 if cell == "cornell_nee" else 2):
+                calls.append((V3(*(c.clone() for c in o)),
+                              V3(*(c.clone() for c in d)), times.clone(),
+                              geoms, tuple(types), kw))
+            return real(o, d, times, geoms, types, *args, **kw)
+
+        def chunk():
+            wf.intersect_planar = spy   # on the first iteration, eager
+            try:
+                r.step_many(1)
+            finally:
+                wf.intersect_planar = real
+            r.step_many(I1_ITERS - 1)   # the capture, then its replays
+        ran = measured_launches(chunk)
+        if r.graph is None or r.graph.replays != I1_ITERS - 1:
+            raise AssertionError(f"I1 {cell}: the chunk replayed no graph")
+        ran_by_cell[cell] = ran["prim"]
+        per_replay[cell] = r.graph.launches["prim"]
+        if (ran["prim"] != I1_ITERS * want_it[cell]
+                or per_replay[cell] != want_it[cell]):
+            raise AssertionError(
+                f"I1 {cell}: {ran['prim']} launches over {I1_ITERS} "
+                f"iterations, {per_replay[cell]} a replay, not "
+                f"{want_it[cell]} an iteration ({ran['wrappers']})")
+        for q, (o, d, times, geoms, types, kw) in enumerate(calls):
+            max_t, tangents = kw.get("max_t"), kw.get("tangents", False)
+            n = o.x.shape[0]
+            t_init = (torch.full((n,), wf.BIG, device=o.x.device)
+                      if max_t is None else torch.clamp(max_t, max=wf.BIG))
+            skip = set(kw.get("sphere_batch", ()))
+            run = tuple((g, t) for g, t in enumerate(types)
+                        if t in (T.CUBE, T.SPHERE) and g not in skip)
+
+            def kernel():
+                return I1.nearest(o, d, times, geoms, run,
+                                  None if max_t is None else t_init, None,
+                                  tangents)
+
+            def plain():
+                return wf.primitive_run_plain(
+                    o, d, times, geoms, run,
+                    wf.init_hit(n, o.x.device, t_init, tangents), tangents)
+            with torch.no_grad():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                bad = I1.differing_lanes(got, want)
+                held = [held_ms(kernel, 20, warm=3) for _ in range(2)]
+                cold = time_cold_ms(kernel, 5)
+                plain_ms = held_ms(plain, 3, warm=1)
+            rows = len(I1.ROWS) - (0 if tangents else I1.TANGENT_ROWS)
+            read = sum(4 * (1 if c.stride(0) == 0 else n)
+                       for c in (*o, *d, times))
+            read += 4 * n if max_t is not None else 0
+            written = n * (4 * rows + 8 + 1)
+            kind = "shadow" if max_t is not None else "nearest"
+            bounce = q // 2 if cell == "cornell_nee" else q
+            rec = dict(metric="I1_prim_hit_ms", cell=cell,
+                       query=f"{kind} bounce {bounce}",
+                       lanes=n, geoms=len(run),
+                       hit_share=float((want.t < t_init).float().mean()),
+                       value=float(np.mean(held)), held_runs=held,
+                       cold_ms=float(np.median(cold)), cold_runs=cold,
+                       plain_ms=plain_ms, bitwise=not bad,
+                       differing_lanes=bad, bytes_read=read,
+                       bytes_written=written,
+                       **bound(read + written, 0), gpu=gpu)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["value"]
+            rec["cold_share_of_bound"] = rec["bound_ms"] / rec["cold_ms"]
+            log(json.dumps(rec))
+            recs.append(rec)
+            if bad:
+                raise AssertionError(f"I1 {cell} query {q}: {bad}")
+        del r
+    out = dict(metric="I1_summary", iterations=I1_ITERS,
+               launches=ran_by_cell, launches_per_replay=per_replay,
+               seconds=time.perf_counter() - t_start, gpu=gpu)
+    log(json.dumps(out))
+    return dict(records=recs, launches=ran_by_cell,
+                launches_per_iteration=per_replay)
+
+
 # ---------------------------------------------------------------------------
 # The train step as one captured graph (slice J)
 # ---------------------------------------------------------------------------
@@ -2979,8 +3143,8 @@ def k2_compacted(gpu: str, p8, sorted_waves: list, plain_waves: list,
 def mesh_integrator(scene, gpu: str):
     """mesh.txt at 1024x1024 depth 8 under slice E's knobs: the --stratified
     --sort --compact path (one iteration with every count set to 0 just
-    before it: 8 K2 launches, nothing else), its image after 2 iterations
-    bit for bit the identity order's, K2 on its compacted bounce-1
+    before it: 8 K2 and 8 I1 launches, nothing else), its image after 2
+    iterations bit for bit the identity order's, K2 on its compacted bounce-1
     wavefront (`k2_compacted`), ms an iteration for sort+compact, Russian
     roulette and plain in turns, and the first-bounce cache (no AA, 4
     iterations: 8 K2 launches, then 7 each; within 1e-5 of the uncached
@@ -3002,7 +3166,8 @@ def mesh_integrator(scene, gpu: str):
                depth=srt.cfg.trace_depth, iterations=1, **counts)
     log(json.dumps(rec))
     if (srt.route != "wavefront" or counts["k2"] != srt.cfg.trace_depth
-            or any(v for k, v in counts.items() if k != "k2")):
+            or counts["prim"] != srt.cfg.trace_depth
+            or any(v for k, v in counts.items() if k not in ("k2", "prim"))):
         raise AssertionError(f"mesh sort+compact path: {rec}")
     with capturing(P8, "traverse8", every, limit=8) as plain_waves:
         plain.step()
@@ -3057,8 +3222,8 @@ def mesh_integrator(scene, gpu: str):
 
 def sdf_dispersion(name: str, outdir: str, gpu: str, spp: int = 16) -> dict:
     """scenes/<name>.txt at its own 800x800 depth 8 through `Renderer`: the
-    route (wavefront, no K1) of one iteration with the counts set to 0
-    before it, one iteration's kernels and busy share (torch.profiler's
+    route (wavefront, no K1; I1 alone, one launch a run of primitives a
+    bounce) of one iteration with the counts set to 0 before it, one iteration's kernels and busy share (torch.profiler's
     device activity), then an `spp` image whose eager iterations are timed
     by CUDA events (ms an iteration); the card against the CPU at 64x64
     depth 8, stratified, with the share of divergent lanes."""
@@ -3072,7 +3237,8 @@ def sdf_dispersion(name: str, outdir: str, gpu: str, spp: int = 16) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     if ((w, h, r.cfg.trace_depth) != (800, 800, 8) or r.route != "wavefront"
-            or any(counts.values())):
+            or counts["prim"] != prim_runs(r.cfg) * r.cfg.trace_depth
+            or any(v for k, v in counts.items() if k != "prim")):
         raise AssertionError(f"{name}: {w}x{h} d{r.cfg.trace_depth}, route "
                              f"{r.route}, launches {counts}")
     prof = profile_one(r.step, host_ops=False)
@@ -3270,8 +3436,8 @@ def timed_replans(r) -> list:
 def adaptive_cornell(outdir: str, gpu: str, truth: torch.Tensor) -> dict:
     """cornell 800x800 d8 --adaptive --adaptive-epoch 8 --stratified, 32
     iterations with every count set to 0 before them: the wavefront route,
-    no kernel launched; counts summing to exactly 32 x 640,000 and spread
-    after the replans; the image's channel means within ADAPTIVE_MEAN_REL
+    no kernel launched but I1 (one a bounce); counts summing to exactly
+    32 x 640,000 and spread after the replans; the image's channel means within ADAPTIVE_MEAN_REL
     of K1's plain 32-spp render; the 32-spp RMSE against the 1,024-spp K1 reference
     `truth` beside the uniform wavefront render's (printed, not gated); the
     replans' host ms; ms an iteration in turns with the uniform wavefront
@@ -3294,8 +3460,11 @@ def adaptive_cornell(outdir: str, gpu: str, truth: torch.Tensor) -> dict:
                count_min=cnt.min(), count_max=cnt.max(),
                replan_host_ms=replans, gpu=gpu)
     log(json.dumps(rec))
-    if (ra.route != "wavefront" or any(counts.values())
-            or any(ran["wrappers"].values()) or cnt.sum() != spp * npix or not cnt.std() > 0
+    if (ra.route != "wavefront"
+            or any(v for k, v in counts.items() if k != "prim")
+            or counts["prim"] != spp * ra.cfg.trace_depth
+            or any(v for k, v in ran["wrappers"].items() if k != "prim")
+            or cnt.sum() != spp * npix or not cnt.std() > 0
             or len(replans) != 3):
         raise AssertionError(f"cornell adaptive path: {rec}")
     k1 = Renderer(cornell, device="cuda")
@@ -3337,8 +3506,8 @@ def adaptive_cornell(outdir: str, gpu: str, truth: torch.Tensor) -> dict:
 def adaptive_mesh(mesh_scene, gpu: str) -> dict:
     """mesh.txt 1024x1024 d8 --adaptive --adaptive-epoch 8 --stratified, the
     cost proxy on: iteration 0 (the identity plan) and iteration 8 (the
-    first replanned mapping, every count set to 0 before it: 8 K2 launches,
-    nothing else) have their bounce-0/1 K2 wavefronts captured. On the
+    first replanned mapping, every count set to 0 before it: 8 K2 and 8 I1
+    launches, nothing else) have their bounce-0/1 K2 wavefronts captured. On the
     replanned ones (repeated pixels, each pixel's paths contiguous) K2
     equals traverse8_plain bit for bit, and is held (stream held, 20
     launches; twice, in turns) beside the identity order's wavefront of the
@@ -3375,7 +3544,8 @@ def adaptive_mesh(mesh_scene, gpu: str) -> dict:
                count_sum=float(ra.count.astype(np.float64).sum()), gpu=gpu)
     log(json.dumps(rec))
     if (ra.route != "wavefront" or counts["k2"] != depth
-            or any(v for k, v in counts.items() if k != "k2")
+            or counts["prim"] != depth
+            or any(v for k, v in counts.items() if k not in ("k2", "prim"))
             or len(replans) != 1 or int(cimg.max()) < 2
             or not bool((pix[1:] >= pix[:-1]).all())
             or rec["count_sum"] != 9 * npix):
@@ -3458,8 +3628,8 @@ def denoise_phase(mesh_scene, outdir: str, gpu: str,
     filter timed apart (CUDA events; each one's kernels by torch.profiler),
     and the whole `denoised_accum` at 4 spp (relay off) and 64 spp (relay
     on). mesh.txt 1024x1024: one `denoised_accum` with every count set to
-    0 before it: its G-buffer's K2 launch, nothing else. Returns the K2
-    launches."""
+    0 before it: its G-buffer's K2 and I1 launch, nothing else. Returns
+    the K2 launches."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.render import denoise as dn
     low = Renderer(load_scene(SCENE), device="cuda")
@@ -3518,7 +3688,8 @@ def denoise_phase(mesh_scene, outdir: str, gpu: str,
                finite=bool(torch.isfinite(img).all()),
                ms=time_ms(rm.denoised_accum, 2, warm=0), gpu=gpu)
     log(json.dumps(rec))
-    if (counts["k2"] != 1 or any(v for k, v in counts.items() if k != "k2")
+    if (counts["k2"] != 1 or counts["prim"] != 1
+            or any(v for k, v in counts.items() if k not in ("k2", "prim"))
             or not rec["finite"]):
         raise AssertionError(f"mesh denoise: {rec}")
     return dict(gbuffer_launches=counts["k2"],
@@ -3738,6 +3909,7 @@ def train_textured_phases(gpu: str) -> dict:
     depth = 8
     if not (r["remat"] and r["counts"]["k2"] == 2 * depth
             and r["counts"]["p1"] == 2 * depth and r["counts"]["k1"] == 0
+            and r["counts"]["prim"] == 0
             and len(tex["fetches"]) == len(tex["waves"]) == 2):
         raise AssertionError(f"textured train step: {r}")
     recs["textured_env"] = r
@@ -3749,7 +3921,9 @@ def train_textured_phases(gpu: str) -> dict:
     # sdf.txt takes remat by the rule (the eager march's saved planes);
     # dispersion.txt does not. The schedules the rule leaves out are not
     # run (their times are in PERF.md section 5). Neither launches a
-    # traversal or fetch kernel; G1 runs in every step's backward.
+    # traversal or fetch kernel; G1 runs in every step's backward. No step
+    # launches I1: the camera is a parameter, so every bounce's rays take a
+    # gradient and each primitive test runs the chain.
     for name, rule_remat in (("sdf", True), ("dispersion", False)):
         rule = train_step_run(name, gpu)["rec"]
         counts = rule["counts"]
@@ -3866,6 +4040,7 @@ def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
                train_grad_max_rel_err=grad_err, gpu=gpu)
     log(json.dumps(rec))
     if (gap > 1e-5 or counts["k2"] != 8 * SHARD_ITERS or counts["k1"]
+            or counts["prim"] != 8 * SHARD_ITERS
             or not ran["wrappers"]["k2"] or grad_err > 1e-4
             or abs(float(loss) - float(want_loss)) > 1e-5 * abs(
                 float(want_loss))):
@@ -4013,7 +4188,7 @@ def preview_phase(outdir: str, gpu: str) -> dict:
 
 
 # the counts of KERNEL_NAMES a chunk's graph may hold
-CHUNK_KERNELS = ("k2", "k2_any_hit", "k3_k4", "p1")
+CHUNK_KERNELS = ("k2", "k2_any_hit", "k3_k4", "p1", "prim")
 
 
 def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
@@ -4275,7 +4450,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary",
-                                 "gather", "extract_cost", "mat_grad"])
+                                 "gather", "extract_cost", "mat_grad",
+                                 "prim_hit"])
     log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
                         libraries={k: os.path.relpath(v, ROOT)
                                    for k, v in libs.items()})))
@@ -4418,6 +4594,8 @@ def main() -> int:
     mark("train")
     g1 = g1_phase(gpu)
     mark("g1")
+    i1 = i1_phase(mesh_scene, gpu)
+    mark("i1")
     train_graph = train_graph_phases(gpu, r.accum / r.iteration)
     mark("train_graph")
 
@@ -4510,7 +4688,7 @@ def main() -> int:
             "preview after an orbit": app["preview"]["k1_launches"]},
         "max_abs_err": main_cmp["max_abs_err"],
         "library_ms": None, **k1}] + mesh + probes
-        + [g1_entry(g1, train_graph)]}), flush=True)
+        + [g1_entry(g1, train_graph), i1_entry(i1)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

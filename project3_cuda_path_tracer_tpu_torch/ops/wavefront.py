@@ -34,6 +34,7 @@ import torch
 from . import bvh8 as B8
 from . import matgrad
 from . import pallas_bvh as PB
+from . import primhit
 from . import qmc
 from . import sdf as S
 from . import texfetch
@@ -417,6 +418,49 @@ def _primitive_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                 outside=outside, tan=tan)
 
 
+def init_hit(n: int, dev, t_init: Optional[torch.Tensor] = None,
+             tangents: bool = False) -> HitP:
+    """The miss record of n lanes that `intersect_planar` merges into:
+    t_init (BIG where None), zero vectors and uv, material 0, outside."""
+    z = torch.zeros((n,), dtype=F32, device=dev)
+    return HitP(t=(torch.full((n,), BIG, dtype=F32, device=dev)
+                   if t_init is None else t_init),
+                normal=V3(z, z, z),
+                mat_id=torch.zeros((n,), dtype=torch.int64, device=dev),
+                point=V3(z, z, z), surf=V3(z, z, z), u=z, v=z,
+                outside=torch.ones((n,), dtype=torch.bool, device=dev),
+                tan=V3(z, z, z) if tangents else None)
+
+
+def merge_hits(best: HitP, cand: HitP) -> HitP:
+    """`cand` where its t is below best's (the strict `<` of the nearest-hit
+    merge, so the earlier geom keeps a tie), else `best`, field by field."""
+    closer = cand.t < best.t
+    tangents = best.tan is not None
+    return HitP(t=torch.where(closer, cand.t, best.t),
+                normal=vec.where(closer, cand.normal, best.normal),
+                mat_id=torch.where(closer, cand.mat_id, best.mat_id),
+                point=vec.where(closer, cand.point, best.point),
+                surf=vec.where(closer, cand.surf, best.surf),
+                u=torch.where(closer, cand.u, best.u),
+                v=torch.where(closer, cand.v, best.v),
+                outside=torch.where(closer, cand.outside, best.outside),
+                tan=(vec.where(closer, cand.tan, best.tan) if tangents
+                     else None))
+
+
+def primitive_run_plain(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
+                        run: Sequence[Tuple[int, int]], best: HitP,
+                        tangents: bool = False) -> HitP:
+    """`best` merged with each (geom, type) of `run` in order, one
+    `_primitive_hit_planar` at a time: the plain version of kernel I1
+    (ops/primhit.py), and the route of the CPU and of autograd."""
+    for g, gtype in run:
+        best = merge_hits(best, _primitive_hit_planar(o, d, times, geoms, g,
+                                                      gtype, tangents))
+    return best
+
+
 def _sdf_hit_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
                     g: int, kind: Tuple[int, int, int],
                     tangents: bool = False) -> HitP:
@@ -733,7 +777,13 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     `t > 0` of such a query means anything.
 
     `tangents` fills `HitP.tan` (normal maps): a mesh hit's tangent comes
-    from the bundle `meshes`, a miss keeps a zero tangent."""
+    from the bundle `meshes`, a miss keeps a zero tangent.
+
+    Each run of CUBE/SPHERE geoms (between SDF geoms) is one call of
+    `primhit.nearest`, which chooses the route: kernel I1 for CUDA tensors
+    none of which takes a gradient, else (the CPU, the train step's
+    autograd) `primitive_run_plain`, the torch chain the kernel repeats bit
+    for bit."""
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g] if g < len(mesh_ids) else -1
@@ -751,53 +801,51 @@ def intersect_planar(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
         elif gtype not in (T.CUBE, T.SPHERE):
             raise ValueError(f"geom {g} has an unknown type {gtype}")
     n = o.x.shape[0]
-    z = torch.zeros((n,), dtype=F32, device=o.x.device)
-    t_init = (torch.full((n,), BIG, dtype=F32, device=o.x.device)
-              if max_t is None else torch.clamp(max_t, max=BIG))
-    best = HitP(t=t_init,
-                normal=V3(z, z, z),
-                mat_id=torch.zeros((n,), dtype=torch.int64,
-                                   device=o.x.device),
-                point=V3(z, z, z), surf=V3(z, z, z), u=z, v=z,
-                outside=torch.ones((n,), dtype=torch.bool, device=o.x.device),
-                tan=V3(z, z, z) if tangents else None)
+    # the miss record's t: an occlusion query's bound, None for BIG
+    t_init = None if max_t is None else torch.clamp(max_t, max=BIG)
+    # the miss record, made where a stage merges into it (I1 starts from
+    # t_init itself)
+    best: Optional[HitP] = None
 
-    def merge(best: HitP, cand: HitP) -> HitP:
-        closer = cand.t < best.t
-        return HitP(t=torch.where(closer, cand.t, best.t),
-                    normal=vec.where(closer, cand.normal, best.normal),
-                    mat_id=torch.where(closer, cand.mat_id, best.mat_id),
-                    point=vec.where(closer, cand.point, best.point),
-                    surf=vec.where(closer, cand.surf, best.surf),
-                    u=torch.where(closer, cand.u, best.u),
-                    v=torch.where(closer, cand.v, best.v),
-                    outside=torch.where(closer, cand.outside, best.outside),
-                    tan=(vec.where(closer, cand.tan, best.tan) if tangents
-                         else None))
+    def start() -> HitP:
+        if best is None:
+            return init_hit(n, o.x.device, t_init, tangents)
+        return best
 
     batched = set(sphere_batch)
     if batched:
-        best = merge(best, _batched_spheres_planar(o, d, times, geoms,
-                                                   sphere_batch, tangents))
+        best = merge_hits(start(), _batched_spheres_planar(
+            o, d, times, geoms, sphere_batch, tangents))
+    # the SDF geoms in order, and between them the maximal runs of the other
+    # CUBE/SPHERE geoms, each one primitive-run stage
+    stages = []
     for g, gtype in enumerate(geom_types):
         if gtype == T.SDF:
-            best = merge(best, _sdf_hit_planar(o, d, times, geoms, g,
-                                               tuple(sdf_kinds[g]),
-                                               tangents))
+            stages.append(g)
         elif gtype != T.MESH and g not in batched:
-            best = merge(best, _primitive_hit_planar(o, d, times, geoms, g,
-                                                     gtype, tangents))
+            if not stages or not isinstance(stages[-1], list):
+                stages.append([])
+            stages[-1].append((g, gtype))
+    for stage in stages:
+        if not isinstance(stage, list):
+            best = merge_hits(start(), _sdf_hit_planar(
+                o, d, times, geoms, stage, tuple(sdf_kinds[stage]),
+                tangents))
+        else:
+            best = primhit.nearest(o, d, times, geoms, tuple(stage), t_init,
+                                   best, tangents)
+    best = start()
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
             mid = mesh_ids[g]
-            best = merge(best, _mesh_hit_packet(
+            best = merge_hits(best, _mesh_hit_packet(
                 o, d, times, geoms, packed_meshes[mid], g,
                 t_world_bound=best.t, alive=alive, meshes=meshes,
                 differentiable=differentiable_mesh,
                 tri_offset=(meshes.mesh_tri_offset[mid].to(torch.int64)
                             if differentiable_mesh or tangents else 0),
                 any_hit=any_hit, tangents=tangents))
-    miss = best.t >= t_init
+    miss = best.t >= (BIG if t_init is None else t_init)
     return best._replace(t=torch.where(miss, -1.0, best.t),
                          mat_id=torch.where(miss, 0, best.mat_id))
 

@@ -1238,14 +1238,18 @@ class Renderer:
 
     def _capture(self) -> None:
         """Capture `_iterate` with the persistent generators registered, as
-        the graph "render". On a scene with an atlas or an env map, the
-        graph's P1 launches a replay (`CapturedGraph.launches["p1"]`) are
-        kept as the counter `render.p1_launches`."""
+        the graph "render". On the card the graph's I1 launches a replay
+        (`CapturedGraph.launches["prim"]`) are kept as the counter
+        `render.prim_launches`, and on a scene with an atlas or an env map
+        its P1 launches as `render.p1_launches`."""
         gens = self._draws()
         self._graph = capture_graph(
             lambda: self._iterate(*gens), self.device,
             generators=[g for g in gens if g is not None],
             counters=launch_counts, name="render")
+        if self.device.type == "cuda":
+            set_counter("render.prim_launches",
+                        self._graph.launches.get("prim", 0))
         tx = self.tables[3]
         if tx.has_atlas or tx.has_env:
             set_counter("render.p1_launches",

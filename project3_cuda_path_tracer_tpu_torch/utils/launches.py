@@ -1,14 +1,15 @@
 """The launch counts of the hand-written kernels, read and zeroed in one
 place: K1 (`ops/megakernel.py`), K2 (`ops/bvh8.py`), K3 and K4
-(`ops/pallas_bvh.py`), P1 (`tools/exp_gather.py`) and G1, the material
-gather's backward (`ops/matgrad.py`).
+(`ops/pallas_bvh.py`), P1 (`tools/exp_gather.py`), G1, the material
+gather's backward (`ops/matgrad.py`), and I1, the analytic primitives'
+nearest hit (`ops/primhit.py`).
 
 Two kinds. Each wrapper adds one to its module's counter where it enqueues
 a launch (`launch_counts`). Under a CUDA graph's capture that happens once,
 without the kernel running, and a replay runs the captured launches with no
 wrapper call: a captured graph keeps the counters' increase over its
 capture as its launches a replay (`utils.device.CapturedGraph.launches`).
-And the kernels of the wavefront route (K2, K3/K4, P1) add one to a tally
+And the kernels of the wavefront route (K2, K3/K4, P1, I1) add one to a tally
 in device memory from their first thread, each time they run, eagerly or
 in a replay (`device_launches`), and so does G1 once a call (its pair of
 passes) in the train step's backward."""
@@ -24,22 +25,24 @@ def launch_counts() -> Dict[str, int]:
     the renderer's), `k2_any_hit` (those of `k2` in occlusion mode),
     `k2_other` (K2's grid and tiny-stack instances), `k3_k4` (every binary
     tree instance), `p1` (the texel gather), `p1_ab` (its A/B entry),
-    `mat_grad` (G1, a call of its two passes)."""
+    `mat_grad` (G1, a call of its two passes), `prim` (I1)."""
     from ..ops import bvh8 as P8
     from ..ops import matgrad as MG
     from ..ops import megakernel as mk
     from ..ops import pallas_bvh as PB
+    from ..ops import primhit as I1
     from ..tools import exp_gather as P1
     return dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES,
                 k2_any_hit=P8.LAUNCHES_ANY_HIT,
                 k2_other=P8.LAUNCHES_GRID + P8.LAUNCHES_TINY,
                 k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT + PB.LAUNCHES_SUB,
-                p1=P1.LAUNCHES, p1_ab=P1.LAUNCHES_AB, mat_grad=MG.LAUNCHES)
+                p1=P1.LAUNCHES, p1_ab=P1.LAUNCHES_AB, mat_grad=MG.LAUNCHES,
+                prim=I1.LAUNCHES)
 
 
 # the device tallies' slots, each the launches of what `launch_counts`
 # counts under the same key
-TALLY_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad")
+TALLY_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad", "prim")
 _TALLIES: Dict[int, torch.Tensor] = {}  # device index -> int64 [slots]
 
 
@@ -78,6 +81,7 @@ def zero_launch_counts() -> None:
     from ..ops import matgrad as MG
     from ..ops import megakernel as mk
     from ..ops import pallas_bvh as PB
+    from ..ops import primhit as I1
     from ..tools import exp_gather as P1
     mk.LAUNCHES = mk.LAUNCHES_GRID = 0
     P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = P8.LAUNCHES_GRID = 0
@@ -85,5 +89,6 @@ def zero_launch_counts() -> None:
     PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
     P1.LAUNCHES = P1.LAUNCHES_AB = 0
     MG.LAUNCHES = 0
+    I1.LAUNCHES = 0
     for tally in _TALLIES.values():
         tally.zero_()
