@@ -23,9 +23,8 @@ once) and drives these paths:
     refilling finished lanes, the renderer's; one thread per ray, `grid`)
     and its tiny-stack instance held equal bit for bit, and the schedules
     timed in turns with each one's busy lane share, deepest stack,
-    registers, spills and global loads in the SASS; K3's two schedules
-    (one thread per ray, `grid`, the route's; persistent warps refilling
-    finished lanes) and K4 (warp packets of live rays) held equal to the
+    registers, spills and global loads in the SASS; K3 (one thread per
+    ray, `grid`) and K4 (warp packets of live rays) held equal to the
     plain version bit for bit, step counts included, and timed in turns on
     both wavefronts and on each bounce of one `pack_all` iteration;
   - mesh.txt with --nee: the shadow rays through K2's any-hit mode, held
@@ -133,9 +132,9 @@ once) and drives these paths:
     replays), read from its device tally;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
-    bit for bit against its plain version first: every P1 instance (the
-    table in one block's shared memory, split across a cluster of 2 or 4,
-    or read through L2) at the 64 KB, 256 KB and 512 KB tables, timed in
+    bit for bit against its plain version first: every P1 instance that
+    holds the table (in one block's shared memory, or read through L2) at
+    the 64 KB, 256 KB and 512 KB tables, timed in
     turns warm and cold beside torch.take; every P2 kind at 256 steps and,
     against the first port's kernel, at 4,096, with the chain floor's terms
     (a dependent row load, FP32 operation and shuffle) measured alone.
@@ -689,8 +688,7 @@ def same_bits(a, b) -> bool:
 
 # (name, instance) of every K3/K4 instance that the checks and the A/B
 # run, the route's (K3 grid) first.
-K34_INSTANCES = [("K3 grid", "grid"), ("K3 persistent", "persistent"),
-                 ("K4", "packet")]
+K34_INSTANCES = [("K3 grid", "grid"), ("K4", "packet")]
 
 
 def lane_utilisation(pops: torch.Tensor) -> float:
@@ -707,7 +705,6 @@ def mesh_phases(outdir: str, gpu: str):
     loaded mesh.txt scene (its SAH build is paid once)."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -771,8 +768,8 @@ def mesh_phases(outdir: str, gpu: str):
                                     pops=int(pers[5].sum()))))
                 if not equal:
                     raise AssertionError(f"{check}: results differ")
-        # K3 (both schedules) and K4 against the plain version, bit for
-        # bit, step counts included.
+        # K3 and K4 against the plain version, bit for bit, step counts
+        # included.
         plain_b = PB.traverse_binary_plain(qo, qd, pb, t_bound=tb)
         binary = {name: PB._launch(inst, qo, qd, pb, tb, True)
                   for name, inst in K34_INSTANCES}
@@ -831,29 +828,27 @@ def mesh_phases(outdir: str, gpu: str):
         scene, packed_meshes=PB.pack_all(scene.meshes)), device="cuda")
     ran = measured_launches(lambda: rb.step_many(2))
     k3_launches = ran["k3_k4"]
-    others = (PB.LAUNCHES_PERSISTENT, PB.LAUNCHES_SUB, ran["k2"],
-              ran["wrappers"]["k2_other"])
+    others = (ran["wrappers"]["k4"], ran["k2"], ran["wrappers"]["k2_other"])
     log(json.dumps(dict(phase="mesh binary path", iterations=rb.iteration,
                         k3_route_instance="grid", k3_launches=k3_launches,
                         wrapper_counts=ran["wrappers"],
-                        k3_persistent_launches=others[0],
-                        k4_launches=others[1], k2_launches=others[2])))
+                        k4_launches=others[0], k2_launches=others[1])))
     if k3_launches != 2 * 8 or not ran["wrappers"]["k3_k4"] or any(others):
         raise AssertionError(f"binary mesh path launched K3 {k3_launches} "
-                             "times for 2 iterations (want 16); K3 "
-                             "persistent and K4 (wrappers) / K2 / K2 grid "
-                             f"and tiny (wrapper) {others} (want none)")
+                             "times for 2 iterations (want 16); K4 "
+                             "(wrapper) / K2 / K2 grid and tiny (wrapper) "
+                             f"{others} (want none)")
     rw = Renderer(scene, device="cuda")
     rw.step_many(2)
     compare_lanes("mesh binary tree vs 8-wide 1024x1024 d8 2spp", rb.accum,
                   rw.accum, ATOL, FRAC)
     # K4 has no route of its own (nor in the JAX package): its drive is the
     # wrapper on the path's two wavefronts.
-    PB.LAUNCHES_SUB = 0
+    zero_counts()
     for qo, qd, tb in (bounce0, bounce1):
         PB.traverse(qo, qd, pb, t_bound=tb, sub_packets=True)
     torch.cuda.synchronize()
-    k4_launches = PB.LAUNCHES_SUB
+    k4_launches = read_counts()["k4"]
 
     # The stratified wavefront route, kernel against plain traversal.
     small = dataclasses.replace(
@@ -933,7 +928,6 @@ def mesh_phases(outdir: str, gpu: str):
                             unheld_ms=k34[(inst, "bounce-0")][1],
                             bounce1_ms=k34[(inst, "bounce-1")][0],
                             bounce1_bound_ms=b1["bound_ms"]))
-    entries[1]["persistent_ms"] = k34[("K3 persistent", "bounce-0")][0]
     return entries, scene
 
 
@@ -948,8 +942,6 @@ def mesh_nee(scene, gpu: str) -> dict:
     the K2 entry's any-hit keys."""
     from project3_cuda_path_tracer_tpu_torch import Renderer
     from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-    from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PB
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
         time_ms as device_ms
     nee = dataclasses.replace(scene, settings=dataclasses.replace(
@@ -967,9 +959,7 @@ def mesh_nee(scene, gpu: str) -> dict:
         return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
                       **kwargs)
 
-    mk.LAUNCHES = P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = 0
-    P8.LAUNCHES_GRID = P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
+    zero_counts()
     P8.traverse8 = capture
     try:
         r.step()
@@ -977,18 +967,14 @@ def mesh_nee(scene, gpu: str) -> dict:
         P8.traverse8 = kernel
     torch.cuda.synchronize()
     depth = r.cfg.trace_depth
-    counts = dict(k2=P8.LAUNCHES, k2_any_hit=P8.LAUNCHES_ANY_HIT,
-                  k1=mk.LAUNCHES, k2_grid=P8.LAUNCHES_GRID,
-                  k2_tiny=P8.LAUNCHES_TINY,
-                  k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT
-                  + PB.LAUNCHES_SUB)
+    counts = {k: v for k, v in read_counts().items()
+              if k in ("k1", "k2", "k2_any_hit", "k2_other", "k3_k4")}
     log(json.dumps(dict(phase="mesh nee path", scene="scenes/mesh.txt",
                         flags="--nee --stratified", depth=depth,
                         iterations=1, **counts)))
     if (counts["k2_any_hit"] != depth - 1 or counts["k2"] != 2 * depth - 1
             or len(shadows) != depth - 1
-            or any(counts[k] for k in ("k1", "k2_grid", "k2_tiny",
-                                       "k3_k4"))):
+            or any(counts[k] for k in ("k1", "k2_other", "k3_k4"))):
         raise AssertionError(f"mesh --nee launches {counts} (want {depth} "
                              f"nearest and {depth - 1} any-hit K2 launches,"
                              " nothing else)")
@@ -1093,24 +1079,23 @@ def nee_room(name: str, path: str, outdir: str, gpu: str) -> dict:
     against a 1,024-spp K1 reference, and the card against the CPU at
     64x64 depth 8."""
     from project3_cuda_path_tracer_tpu_torch import Renderer
-    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-    mk.LAUNCHES = mk.LAUNCHES_GRID = P8.LAUNCHES = 0
+    zero_counts()
     r = Renderer(nee_scene(path, 800, 8, nee=True, stratified=True),
                  device="cuda")
     per_it, nee8 = channel_means(r, 16, keep_at=8)
     torch.cuda.synchronize()
-    counts = dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES)
+    counts = {k: read_counts()[k] for k in ("k1", "k2")}
     if r.route != "wavefront" or not r.cfg.nee or any(counts.values()):
         raise AssertionError(f"{name} --nee: route {r.route}, nee "
                              f"{r.cfg.nee}, launches {counts}")
     png = r.save(os.path.join(outdir, f"{name}_nee_800x800_16spp"))
-    mk.LAUNCHES = 0
+    zero_counts()
     plain = Renderer(sized(path, 800, 8), device="cuda")
     plain_it, plain8 = channel_means(plain, 16, keep_at=8)
-    if plain.route != "megakernel" or mk.LAUNCHES != 16:
+    k1 = read_counts()["k1"]
+    if plain.route != "megakernel" or k1 != 16:
         raise AssertionError(f"{name} plain: route {plain.route}, "
-                             f"{mk.LAUNCHES} K1 launches")
+                             f"{k1} K1 launches")
     nee_m, plain_m = per_it.mean(0), plain_it.mean(0)
     rel = np.abs(nee_m - plain_m) / plain_m
     se = np.hypot(per_it.std(0), plain_it.std(0)) / 4.0
@@ -1191,7 +1176,6 @@ def nee_phases(outdir: str, gpu: str) -> None:
     through the batched sphere pass (ms and kernels per iteration); the CLI
     with --nee on cornell."""
     from project3_cuda_path_tracer_tpu_torch import Renderer
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     for name, path in (("cornell", SCENE), ("lights", LIGHTS)):
         nee_room(name, path, outdir, gpu)
 
@@ -1245,7 +1229,6 @@ def nee_phases(outdir: str, gpu: str) -> None:
                         mean=float(img.mean()), gpu=gpu,
                         **profile_one(r.step))))
 
-    mk.LAUNCHES = 0
     cli = subprocess.run(
         [sys.executable, "-m", PKG, SCENE, "--nee", "--stratified",
          "--iterations", "4", "--device", "cuda", "--metrics", "--outdir",
@@ -1405,7 +1388,7 @@ def textured_path(name: str, outdir: str, gpu: str) -> dict:
     png = r.save(os.path.join(outdir, f"{name}_2048_8spp"))
     out = dict(metric=f"{name}_ms_per_iteration", value=float(np.mean(runs)),
                runs=runs, config=f"{name}.txt 2048x2048 depth 8",
-               k2_launches=counts["k2"], p1_launches=counts["p1"],
+               k2_launches=counts["k2"], gather_launches=counts["p1"],
                mean=float(img.mean()), png=png, gpu=gpu, **prof)
     log(json.dumps(out))
     return dict(ms=out["value"], counts=counts, fetches=fetches[:2],
@@ -1419,7 +1402,7 @@ def p1_on_path(gpu: str, fetches: list) -> dict:
     beside torch.take on the same indices and the plain version, with its
     bound: (8 N + the table's bytes) / the HBM rate. Returns bounce 0's
     numbers and both bounces' records."""
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch as P1
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
         time_cold_ms
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
@@ -1863,8 +1846,8 @@ def k2_bounces(gpu: str, p8, bounces: list) -> None:
                                "K2 launches, each held", gpu=gpu)))
 
 
-# A K3/K4 instance's mangled name: binary_kernel<SCHED> (SCHED 0
-# persistent, 1 grid, 2 packet).
+# A K3/K4 instance's mangled name: binary_kernel<SCHED> (SCHED 1 grid, 2
+# packet).
 K34_MANGLED = re.compile(r"binary_kernelILi(\d)E")
 
 
@@ -2028,14 +2011,12 @@ def mesh_train(scene) -> None:
     iterations): the check sums the gradients of four stratified
     iterations."""
     from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
-    from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     small = dataclasses.replace(
         scene, camera=copy.deepcopy(scene.camera),
         settings=dataclasses.replace(scene.settings, trace_depth=3))
     small.camera.resolution = (32, 32)
     small.camera.derive()
-    mk.LAUNCHES = P8.LAUNCHES = 0
+    zero_counts()
     ir = PInv.InverseRenderer(small, np.full((32, 32, 3), 0.5, np.float32),
                               device="cuda")
     losses = [ir.step(), ir.step()]
@@ -2051,7 +2032,7 @@ def mesh_train(scene) -> None:
             if g is not None:
                 acc += g
     torch.cuda.synchronize()
-    k2, k1 = P8.LAUNCHES, mk.LAUNCHES
+    k2, k1 = read_counts()["k2"], read_counts()["k1"]
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
     mesh_albedo = float(grads[0][2].abs().max())
     log(json.dumps(dict(phase="mesh train", resolution=[32, 32], depth=3,
@@ -2796,7 +2777,7 @@ def train_graph_phases(gpu: str, target: torch.Tensor) -> dict:
         and wrappers[k] == 2 * per[k] for k in ("k2", "p1"))
     out = dict(seconds=time.perf_counter() - t_start, seconds_by_part=marks,
                k1_launches=k1, textured_tallies_ok=tallies_ok,
-               k2_launches=ran["k2"], p1_launches=ran["p1"],
+               k2_launches=ran["k2"], gather_launches=ran["p1"],
                cornell_800=dict(
                    eager_ms=a["ms_per_step_eager"],
                    graph_ms=a["second_call"]["ms_per_step_graph"],
@@ -2870,15 +2851,16 @@ def p1_sizes(gpu: str) -> dict:
     version, then timed in turns (in order, then reversed) warm (stream
     held, 20 calls) and cold (each call after a 128 MB write), beside
     `torch.take` and the plain version. Returns the records by texels."""
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch as P1
+    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
         time_cold_ms
     from project3_cuda_path_tracer_tpu_torch.utils.device import \
         time_ms as held_ms
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for side in (*P1.SIDES, P1.SKY):
-        table, _, idx = P1.inputs(side)
+    for side in (*exp_gather.SIDES, exp_gather.SKY):
+        table, _, idx = exp_gather.inputs(side)
         p = table.numel()
         want = P1.gather_plain(table, idx).view(torch.int32)
         fits = [k for k in P1.INSTANCES
@@ -2913,9 +2895,7 @@ def p1_sizes(gpu: str) -> dict:
                 cold_ms=float(np.mean(cold[name])),
                 share_warm=b["bound_ms"] / float(np.mean(warm[name])),
                 share_cold=b["bound_ms"] / float(np.mean(cold[name])),
-                grid=grid, **({"blocks_per_sm": per} if k <= 1 else
-                              {"clusters": per}),
-                busy_sms=sms if k <= 1 else min(grid, sms),
+                grid=grid, blocks_per_sm=per, busy_sms=sms,
                 runs=warm[name], cold_runs=cold[name])
         rec["torch_take"] = dict(ms=float(np.mean(warm["torch_take"])),
                                  cold_ms=float(np.mean(cold["torch_take"])))
@@ -2960,8 +2940,8 @@ def p2_chain(gpu: str) -> dict:
 def probe_phases(gpu: str) -> list:
     """P1 and P2: each instance and kind bit for bit, P1's sizes timed warm
     and cold, P2's chain floor, then each probe's entry point (its main())
-    with the counts at 0 before and read after. Returns their `kernels`
-    entries."""
+    with the counts at 0 before and read after (P1's in `utils.launches`,
+    P2's in its own module). Returns their `kernels` entries."""
     from project3_cuda_path_tracer_tpu_torch.tools import \
         exp_extract_cost as P2
     from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
@@ -2969,8 +2949,10 @@ def probe_phases(gpu: str) -> list:
     chain = p2_chain(gpu)
 
     out = {}
-    for name, mod in (("gather", P1), ("extract_cost", P2)):
-        mod.LAUNCHES = 0
+    zero_counts()
+    P2.LAUNCHES = 0
+    for name, mod, launched in (("gather", P1, lambda: read_counts()["p1"]),
+                                ("extract_cost", P2, lambda: P2.LAUNCHES)):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = mod.main()
@@ -2978,11 +2960,11 @@ def probe_phases(gpu: str) -> list:
                 if line.startswith("{")]
         for rec in recs:
             log(json.dumps(dict(probe=name, gpu=gpu, **rec)))
-        if rc != 0 or mod.LAUNCHES == 0:
+        if rc != 0 or launched() == 0:
             raise AssertionError(f"probe {name}: rc {rc}, "
-                                 f"{mod.LAUNCHES} launches")
-        out[name] = (recs, mod.LAUNCHES)
-    recs, p1_launches = out["gather"]
+                                 f"{launched()} launches")
+        out[name] = (recs, launched())
+    recs, gather_launches = out["gather"]
     by = {(r["prim"], r["P"]): r for r in recs}
     if not all(by[("cuda_gather_u32", s * s)]["correct"] for s in P1.SIDES):
         raise AssertionError("P1 probe: gather not correct")
@@ -3007,7 +2989,7 @@ def probe_phases(gpu: str) -> list:
     return [
         dict(name="texel gather (P1)", route="cuda",
              source=f"{PKG}/csrc/gather.cu",
-             replaces="tools/exp_gather.py:88", launches=p1_launches,
+             replaces="tools/exp_gather.py:88", launches=gather_launches,
              max_abs_err=0.0, ms=by[("cuda_gather_u32", big)]["ms"],
              plain_ms=by[("plain_index_u32", big)]["ms"],
              bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
@@ -3280,7 +3262,6 @@ def integrator_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     with --clamp 4 --gamma 2.2 --aces. Prints its own wall time; returns
     K2's keys for the `kernels` line."""
     from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
     t_start = time.perf_counter()
     marks = {}
@@ -3336,12 +3317,13 @@ def integrator_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     rr = Renderer(settings_of(cornell, russian_roulette=True),
                   device="cuda")
     rr_it, _ = channel_means(rr, 16)
-    mk.LAUNCHES = 0
+    zero_counts()
     k1 = Renderer(cornell, device="cuda")
     k1_it, _ = channel_means(k1, 16)
     rel = np.abs(rr_it.mean(0) - k1_it.mean(0)) / k1_it.mean(0)
     rec = dict(check="cornell --russian-roulette 800x800 d8 16spp mean vs "
-                     "K1 plain", route=rr.route, k1_launches=mk.LAUNCHES,
+                     "K1 plain", route=rr.route,
+               k1_launches=read_counts()["k1"],
                rr=rr_it.mean(0).tolist(), plain=k1_it.mean(0).tolist(),
                rel_gap=rel.tolist(),
                se_gap=(np.hypot(rr_it.std(0), k1_it.std(0)) / 4).tolist(),
@@ -3880,7 +3862,7 @@ def train_step_run(name: str, gpu: str, capture: bool = False) -> dict:
                       f"history step, remat {cfg.remat}",
                remat=cfg.remat, peak_memory_bytes=peak, peak_gb=peak / GB,
                k2_launches_per_step=counts["k2"],
-               p1_launches_per_step=counts["p1"], counts=counts,
+               gather_launches_per_step=counts["p1"], counts=counts,
                losses=losses, gpu=gpu)
     log(json.dumps(rec))
     packed = ir.packed_meshes[0] if ir.packed_meshes else None
@@ -3940,10 +3922,11 @@ def train_textured_phases(gpu: str) -> dict:
                           cfg)
     log(json.dumps(dict(metric="train_textured_summary", gpu=gpu, **{
         k: dict(ms=v["value"], peak_gb=v["peak_gb"], remat=v["remat"],
-                k2=v["k2_launches_per_step"], p1=v["p1_launches_per_step"])
+                k2=v["k2_launches_per_step"],
+                p1=v["gather_launches_per_step"])
         for k, v in recs.items()})))
-    return dict(k2_launches=r["counts"]["k2"], p1_launches=r["counts"]["p1"],
-                p1=p1, k2=k2)
+    return dict(k2_launches=r["counts"]["k2"],
+                gather_launches=r["counts"]["p1"], p1=p1, k2=k2)
 
 
 SHARD_ITERS = 4
@@ -4511,12 +4494,13 @@ def main() -> int:
     schedules_equal()
 
     # ---- 6. the main path -------------------------------------------------
-    mk.LAUNCHES = mk.LAUNCHES_GRID = 0
+    zero_counts()
     r = Renderer(load_scene(SCENE), device="cuda")
     w, h = r.scene.camera.resolution
     r.step_many(16)
     torch.cuda.synchronize()
-    launches, grid_launches = mk.LAUNCHES, mk.LAUNCHES_GRID
+    ran = read_counts()
+    launches, grid_launches = ran["k1"], ran["k1_grid"]
     if (w, h, r.cfg.trace_depth) != (800, 800, 8):
         raise AssertionError(f"cornell is {w}x{h} depth {r.cfg.trace_depth}")
     if launches != 16 or grid_launches:
@@ -4652,15 +4636,15 @@ def main() -> int:
     probe = probes[0]
     p1_train = app["train"]["p1"]
     probe.update(
-        launches=(tex["launches"] + app["train"]["p1_launches"]
-                  + chunk["p1"] + train_graph["p1_launches"]),
+        launches=(tex["launches"] + app["train"]["gather_launches"]
+                  + chunk["p1"] + train_graph["gather_launches"]),
         launches_by_path={"textured_env": tex["launches"],
                           "textured_env train step":
-                              app["train"]["p1_launches"],
+                              app["train"]["gather_launches"],
                           "textured_env chunk (graph replays)":
                               chunk["p1"],
                           "textured_env 512 train scan (1 eager step, "
-                          "2 replays)": train_graph["p1_launches"]},
+                          "2 replays)": train_graph["gather_launches"]},
         train_step_ms=[b["value"] for b in p1_train],
         train_step_library_ms=[b["library_ms"] for b in p1_train],
         ms=p1["value"], cold_ms=p1["cold_ms"],

@@ -23,29 +23,20 @@
 // until its longest ray is done.
 //
 // What the design does about it:
-//  - K3, one thread per ray (GRID, the route's instance): every ray starts
-//    at once, so a launch lasts about as long as its longest rays' chains.
-//    Each lane loops on its own; a warp vote per step (__ballot_sync, which
-//    the `stats` tally needs) keeps the warp's lanes in lockstep and cost
-//    12.5% of a `pack_all` iteration (PERF.md), so only a launch that asks
-//    for the tally takes it.
-//  - K3, persistent warps that refill finished lanes (PERSISTENT, the
-//    schedule of ops/bvh8.py's K2), a second instance of the same template
-//    for the A/B and the bitwise check: the grid fills the card (SMs x
-//    resident blocks, worked out once by the wrapper); each warp takes
-//    32-ray chunks from a 4-byte counter (one atomicAdd per chunk,
-//    broadcast by __shfl_sync); once at least REFILL lanes of the warp are
-//    idle, those lanes take the chunk's next rays (ranked with
-//    __ballot_sync/__popc). A lane holds its ray, its hit and one cursor,
-//    no stack, so a refill is cheap. On the mesh wavefronts it doubles the
-//    busy lane share where lanes die early, yet loses to GRID on every
-//    bounce: a warp that keeps refilling stretches its long ray's chain,
-//    and on mostly dead wavefronts the single counter's atomics are the
-//    floor (PERF.md).
-//  - K4, warp packets of live rays (PACKET): a persistent warp takes 32-ray
-//    chunks, answers their dead rays, and forms a packet of the next 32 live
-//    rays in ray order (ranked with __ballot_sync/__popc, moved with
-//    __shfl_sync), so neighbouring pixels stay together. The packet walks
+//  - K3, one thread per ray (GRID): every ray starts at once, so a launch
+//    lasts about as long as its longest rays' chains. Each lane loops on
+//    its own; a warp vote per step (__ballot_sync, which the `stats` tally
+//    needs) keeps the warp's lanes in lockstep and cost 12.5% of a
+//    `pack_all` iteration (PERF.md), so only a launch that asks for the
+//    tally takes it. (Persistent warps that refill finished lanes, K2's
+//    schedule, lost to it on every bounce: PERF.md.)
+//  - K4, warp packets of live rays (PACKET): a persistent warp (the grid
+//    fills the card: SMs x resident blocks, worked out once by the
+//    wrapper) takes 32-ray chunks from a 4-byte counter (one atomicAdd per
+//    chunk, broadcast by __shfl_sync), answers their dead rays, and forms
+//    a packet of the next 32 live rays in ray order (ranked with
+//    __ballot_sync/__popc, moved with __shfl_sync), so neighbouring pixels
+//    stay together. The packet walks
 //    one shared cursor, the smallest node any of its lanes is due at
 //    (__reduce_min_sync); a lane steps only when the cursor reaches its own
 //    next node. A lane whose slab test fails at node X is thus masked off
@@ -75,8 +66,8 @@
 // n] f32 (t, nx, ny, nz, u, v); tri
 // [n] i32 (-1 = miss); steps [n] i32 or null (node visits); stats null or
 // 2 u64 (busy and total lane slots of the steps, added in).
-// bvh_binary_traverse launches one instance (0 persistent, 1 grid, 2
-// packet) and returns cudaGetLastError();
+// bvh_binary_traverse launches one instance (1 grid, 2 packet) and returns
+// cudaGetLastError();
 // bvh_binary_attributes reads an instance's registers, local memory and
 // occupancy.
 #include "bvh_common.cuh"
@@ -86,19 +77,15 @@ namespace {
 constexpr int THREADS = bvh::THREADS;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int DONE = 0x7FFFFFFF;  // a K4 lane's next node once it is done
-// The persistent schedule refills a warp's idle lanes once at least this
-// many of its 32 are idle (K2's value).
-constexpr int REFILL = 2;
 
-constexpr int PERSISTENT = 0;
 constexpr int GRID = 1;
 constexpr int PACKET = 2;
 
 // Resident blocks per SM that __launch_bounds__ asks for: the most with no
 // spills (nvcc -Xptxas -v on sm_90a: the grid instance fits 64 registers,
-// 8 blocks, and spills at 10 or 12 blocks, which ran slower; the
-// persistent and packet instances use 71 and 69 unbounded, and spill at
-// 64, so 72 registers, 7 blocks).
+// 8 blocks, and spills at 10 or 12 blocks, which ran slower; the packet
+// instance uses 69 unbounded, and spills at 64, so 72 registers, 7
+// blocks).
 template <int SCHED>
 constexpr int min_blocks() {
   return SCHED == GRID ? 8 : 7;
@@ -239,7 +226,6 @@ __global__ void __launch_bounds__(THREADS, min_blocks<SCHED>())
   __syncthreads();
 
   const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = (1u << lane) - 1u;
   const bool leader = lane == 0;
   Lane L;
 
@@ -255,38 +241,6 @@ __global__ void __launch_bounds__(THREADS, min_blocks<SCHED>())
         count_step(p, leader, live);
         if (alive) alive = step(p, L);
       }
-    }
-  } else if (SCHED == PERSISTENT) {  // K3, refilling idle lanes
-    bool alive = false;
-    int base = 0, used = 32;  // the warp's chunk [base, base+32), `used` taken
-    bool more = true;         // rays left on the counter
-    for (;;) {
-      unsigned live = __ballot_sync(FULL, alive);
-      if (more && (live == 0 || 32 - __popc(live) >= REFILL)) {
-        unsigned idle = ~live;
-        while (idle && more) {
-          if (used == 32) {
-            base = grab(p, lane);
-            used = 0;
-            if (base < 0) {
-              more = false;
-              break;
-            }
-          }
-          const int avail = min(32 - used, p.n - base - used);
-          const unsigned rank = __popc(idle & below);
-          const bool take = ((idle >> lane) & 1u) && (int)rank < avail;
-          if (take) alive = start(p, base + used + (int)rank, L);
-          used += min(__popc(idle), avail);
-          // a lane that took a dead ray stays idle and takes the next one
-          idle &= ~__ballot_sync(FULL, take && alive);
-          if (base + used >= p.n) more = false;
-        }
-        live = __ballot_sync(FULL, alive);
-      }
-      if (!live) break;
-      count_step(p, leader, live);
-      if (alive) alive = step(p, L);
     }
   } else {  // K4, packets of live rays walking one shared cursor
     int ci = 0;             // this lane's ray of the warp's chunk
@@ -360,11 +314,9 @@ __global__ void __launch_bounds__(THREADS, min_blocks<SCHED>())
 
 typedef void (*KernelFn)(const Params);
 
-// The instances: 0 persistent (K3, the A/B's), 1 grid (K3, the route's),
-// 2 packet (K4).
+// The instances: 1 grid (K3), 2 packet (K4).
 KernelFn pick(int instance) {
   switch (instance) {
-    case PERSISTENT: return binary_kernel<PERSISTENT>;
     case GRID: return binary_kernel<GRID>;
     case PACKET: return binary_kernel<PACKET>;
   }
@@ -373,11 +325,10 @@ KernelFn pick(int instance) {
 
 }  // namespace
 
-// One launch of instance `instance` (0 persistent, 1 grid, 2 packet). A
-// persistent instance (0, 2)
-// runs `blocks` blocks (SMs x bvh_binary_attributes' resident blocks,
-// worked out once by the caller), cut to the blocks the rays need, and
-// takes rays from `counter`, 4 bytes of device scratch zeroed here on
+// One launch of instance `instance` (1 grid, 2 packet). The packet
+// instance runs `blocks` blocks (SMs x bvh_binary_attributes' resident
+// blocks, worked out once by the caller), cut to the blocks the rays need,
+// and takes rays from `counter`, 4 bytes of device scratch zeroed here on
 // `stream`; the grid instance ignores both.
 extern "C" int bvh_binary_traverse(
     int instance, const float* ox, const float* oy, const float* oz,

@@ -1,10 +1,10 @@
 // P1: a gather of 32-bit texels by index, out[i] = table[idx[i]].
 //
-// Replaces the Pallas probe kernel `kernel` of `dgather` in
-// tools/exp_gather.py (jnp.take_along_axis on a lane-replicated [P, 128]
-// u32 table, which lowers to tpu.dynamic_gather). The lane replication is
-// how the TPU feeds its per-lane gather; the function computed is
-// flat_table[idx]. Here the kernel takes the flat [P] table.
+// Replaces the Pallas probe kernel `kernel` of `dgather` in the JAX
+// package's tools/exp_gather.py (jnp.take_along_axis on a lane-replicated
+// [P, 128] u32 table, which lowers to tpu.dynamic_gather). The lane
+// replication is how the TPU feeds its per-lane gather; the function
+// computed is flat_table[idx]. Here the kernel takes the flat [P] table.
 //
 // What bounds it on this card: memory traffic. The call must read n 4-byte
 // indices and write n 4-byte texels (32 MB for the probe's 4M fetches); the
@@ -16,11 +16,6 @@
 //   - K = 1 (`block`): each block of a persistent grid stages the whole
 //     table in its dynamic shared memory with 1-D TMA bulk copies
 //     (cp.async.bulk, completed on an mbarrier) and reads it from there;
-//   - K = 2 or 4 (`cluster`): a thread block cluster of K blocks holds the
-//     table in K slices, one a block, and a lane reads the slice that holds
-//     its index through distributed shared memory (mapa +
-//     ld.shared::cluster), its own slice through the local path. One
-//     table load feeds the cluster;
 //   - K = 0 (`l2`): no staging, the table read through the read-only path
 //     (__ldg).
 // Every instance streams the indices in and the texels out 16 bytes a
@@ -31,27 +26,21 @@
 // issued before the block waits for its table. An index outside [0, P)
 // reads 0 (the plain version raises there).
 //
-// The wrapper (tools/exp_gather.py) picks K from the table's size alone,
-// before the launch: `block` while one block's shared memory holds the
-// table, `l2` above. On an H100 a lane's random 4-byte read of a
-// neighbour's slice costs more than an L2 read, so the cluster instances
-// lost their A/B to `l2` at 256 KB and 512 KB and serve the A/B only
-// (PERF.md). `gather_plan` sizes the persistent grid
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, or
-// cudaOccupancyMaxActiveClusters for a cluster).
+// The wrapper (ops/texfetch.py) picks K from the table's size alone, before
+// the launch: `block` while one block's shared memory holds the table, `l2`
+// above. (Tables split across a thread block cluster and read through
+// distributed shared memory lost to `l2` on an H100: PERF.md.)
+// `gather_plan` sizes the persistent grid
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 //
-// Interface (plain C, bound with ctypes by tools/exp_gather.py):
-//   gather_plan(k, table_size, out[2]) -> grid, and blocks per SM (k <= 1)
-//     or active clusters (k >= 2) in out;
+// Interface (plain C, bound with ctypes by ops/texfetch.py):
+//   gather_plan(k, table_size, out[2]) -> grid, and blocks per SM in out;
 //   gather_launch(k, grid, table [P] u32, P, table_aligned, idx [n] i32,
 //     out [n] u32, n, idx_aligned, stream).
 // Both return a cudaError_t (cudaGetLastError() after the launch).
 #include <cstdint>
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -61,17 +50,9 @@ constexpr int THREADS = 1024;
 // them in flight queue behind each other: measured on an H100).
 template <int K>
 constexpr int GROUPS = K == 0 ? 1 : 4;
-// Bytes of table one block holds (tools/exp_gather.SLICE_BYTES).
+// Bytes of table one block holds (ops/texfetch.SLICE_BYTES).
 constexpr int SLICE_MAX = 200 * 1024;
 constexpr uint32_t CHUNK_WORDS = 8192;  // 32 KB per bulk copy
-
-// Words of the slice each block of a K-block cluster holds: the table
-// split K ways, rounded up to 16 bytes so that every slice's start is as
-// aligned as the table for the bulk copy.
-__host__ __device__ inline uint32_t slice_words(uint32_t size, int k) {
-  const uint32_t w = (size + k - 1) / k;
-  return (w + 3u) & ~3u;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -123,40 +104,17 @@ __device__ __forceinline__ void wait_phase0(uint64_t* bar) {
       : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld_cluster(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // The table as a K instance reads it.
 template <int K>
 struct Table {
-  const uint32_t* g;      // K = 0
-  const uint32_t* s;      // K >= 1: this block's copy or slice
-  uint32_t base[K > 1 ? K : 1];  // K > 1: each rank's slice, shared::cluster
-  uint32_t size, slice, rank;
+  const uint32_t* g;  // K = 0
+  const uint32_t* s;  // K = 1: this block's copy
+  uint32_t size;
 
   __device__ __forceinline__ uint32_t operator()(int32_t j) const {
     const uint32_t u = static_cast<uint32_t>(j);
     if (u >= size) return 0u;
-    if (K == 0) return __ldg(g + u);
-    if (K == 1) return s[u];
-    uint32_t r = 0, addr = base[0], off = u;
-#pragma unroll
-    for (int q = 1; q < K; ++q) {
-      if (u >= q * slice) {
-        r = q;
-        addr = base[q];
-        off = u - q * slice;
-      }
-    }
-    // This block's own slice through the local path, a neighbour's
-    // through distributed shared memory.
-    return r == rank ? s[off] : ld_cluster(addr + 4u * off);
+    return K == 0 ? __ldg(g + u) : s[u];
   }
 };
 
@@ -180,24 +138,7 @@ __global__ void __launch_bounds__(THREADS)
   t.g = table;
   t.s = tab_s;
   t.size = size;
-  t.slice = K > 1 ? slice_words(size, K) : size;
-  t.rank = K > 1 ? cg::this_cluster().block_rank() : 0u;
-  if (K > 0) {
-    const uint32_t lo = t.rank * t.slice;
-    const uint32_t words =
-        lo < size ? (size - lo < t.slice ? size - lo : t.slice) : 0u;
-    stage(table + lo, words, table_aligned != 0, tab_s, &bar);
-    if (K > 1) {
-#pragma unroll
-      for (int q = 0; q < (K > 1 ? K : 1); ++q) {
-        uint32_t a;
-        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                     : "=r"(a)
-                     : "r"(smem_addr(tab_s)), "r"(q));
-        t.base[q] = a;
-      }
-    }
-  }
+  if (K == 1) stage(table, size, table_aligned != 0, tab_s, &bar);
 
   const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long stride = (long long)gridDim.x * THREADS;
@@ -212,12 +153,9 @@ __global__ void __launch_bounds__(THREADS)
     const long long gi = tid + u * stride;
     cur[u] = gi < n4 ? __ldcs(idx4 + gi) : make_int4(0, 0, 0, 0);
   }
-  if (K > 0) {
+  if (K == 1) {
     wait_phase0(&bar);
-    if (K == 1)
-      __syncthreads();  // the plainly copied tail words
-    else
-      cg::this_cluster().sync();  // every slice of the cluster has landed
+    __syncthreads();  // the plainly copied tail words
   }
 
   for (long long g = tid; g < n4; g += step) {
@@ -238,8 +176,6 @@ __global__ void __launch_bounds__(THREADS)
   // aligned.
   for (long long i = n4 * 4 + tid; i < n; i += stride)
     __stcs(out + i, t(__ldcs(idx + i)));
-
-  if (K > 1) cg::this_cluster().sync();  // neighbours may still read us
 }
 
 typedef void (*KernelFn)(const uint32_t*, uint32_t, int, const int32_t*,
@@ -249,31 +185,14 @@ KernelFn kernel_for(int k) {
   switch (k) {
     case 0: return gather_kernel<0>;
     case 1: return gather_kernel<1>;
-    case 2: return gather_kernel<2>;
-    case 4: return gather_kernel<4>;
     default: return nullptr;
   }
 }
 
+// Shared-memory bytes of instance k: the table rounded up to 16 bytes for
+// the bulk copy (K = 1), none for K = 0.
 size_t smem_bytes(int k, uint32_t size) {
-  return k == 0 ? 0 : size_t(slice_words(size, k)) * 4;
-}
-
-void fill_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int k,
-                 int grid, size_t smem, cudaStream_t stream) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(grid);
-  cfg->blockDim = dim3(THREADS);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
-  if (k > 1) {
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = k;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg->attrs = attr;
-    cfg->numAttrs = 1;
-  }
+  return k == 0 ? 0 : size_t((size + 3u) & ~3u) * 4;
 }
 
 }  // namespace
@@ -293,26 +212,15 @@ extern "C" int gather_plan(int k, int table_size, int* out) {
   if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                    dev)) != cudaSuccess)
     return rc;
-  if (k <= 1) {
-    int per_sm = 0;
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
-                                                       smem);
-    if (rc != cudaSuccess) return rc;
-    // One block an SM: a second one measured slower on an H100 (a second
-    // table copy to stage; more random reads in flight for K = 0).
-    if (per_sm > 1) per_sm = 1;
-    out[0] = per_sm * sms;
-    out[1] = per_sm;
-  } else {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    fill_config(&cfg, &attr, k, k * (sms / k), smem, nullptr);
-    int clusters = 0;
-    rc = cudaOccupancyMaxActiveClusters(&clusters, (void*)fn, &cfg);
-    if (rc != cudaSuccess) return rc;
-    out[0] = clusters * k;
-    out[1] = clusters;
-  }
+  int per_sm = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                     smem);
+  if (rc != cudaSuccess) return rc;
+  // One block an SM: a second one measured slower on an H100 (a second
+  // table copy to stage; more random reads in flight for K = 0).
+  if (per_sm > 1) per_sm = 1;
+  out[0] = per_sm * sms;
+  out[1] = per_sm;
   return out[0] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
@@ -322,21 +230,20 @@ extern "C" int gather_launch(int k, int grid, const uint32_t* table,
                              int idx_aligned, unsigned long long* launches,
                              void* stream) {
   KernelFn fn = kernel_for(k);
-  if (fn == nullptr || table_size <= 0 || grid <= 0 || grid % (k > 1 ? k : 1))
+  if (fn == nullptr || table_size <= 0 || grid <= 0)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(k, table_size);
   if (smem > SLICE_MAX) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
-  // No more blocks than the work needs (a multiple of the cluster size).
+  // No more blocks than the work needs.
   const long long units = idx_aligned ? (n >> 2) + (n & 3) : n;
   long long blocks = (units + THREADS - 1) / THREADS;
-  const int kk = k > 1 ? k : 1;
-  blocks = (blocks + kk - 1) / kk * kk;
   if (blocks > grid) blocks = grid;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  fill_config(&cfg, &attr, k, (int)blocks, smem,
-              static_cast<cudaStream_t>(stream));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
   cudaError_t rc =
       cudaLaunchKernelEx(&cfg, fn, table, (uint32_t)table_size,
                          table_aligned, idx, out, n, idx_aligned, launches);

@@ -24,15 +24,15 @@ array, node and triangle rows read as 16-byte vectors.
 `traverse8()` is the wrapper the integrator calls: CPU tensors take
 `traverse8_plain` (the same per-ray stack walk in torch ops), CUDA tensors
 launch the persistent kernel on the planes as they are (a plane is copied
-only if it is not contiguous), counted in LAUNCHES (and, in the occlusion
-mode that NEE's shadow rays take, also in LAUNCHES_ANY_HIT); the kernel
+only if it is not contiguous), counted under `k2` (and, in the occlusion
+mode that NEE's shadow rays take, also under `k2_any_hit`); the kernel
 itself adds the launch to the card's `k2` (and `k2_any_hit`) tally
 (utils/launches.py), which CUDA graph replays reach too. Two more instances
 serve chip_smoke.py and tests/test_torch_cuda.py only (CUDA tensors only):
 `_traverse8_grid`, the first port's schedule, one thread per ray (the A/B
-and the bitwise check; counted in LAUNCHES_GRID), and `_traverse8_tiny`,
-the persistent one with a 2-entry shared stack, which exercises the local
-overflow (LAUNCHES_TINY).
+and the bitwise check), and `_traverse8_tiny`, the persistent one with a
+2-entry shared stack, which exercises the local overflow; both count under
+`k2_other`.
 
 Layout, built on the host from the binned-SAH binary tree of scene/bvh.py
 (`pack_mesh8`, bit for bit as the JAX package packs it; the JAX `nodes`
@@ -60,13 +60,9 @@ import torch
 from ..scene import types as T
 from ..utils import cuda_build
 from ..utils.device import stream_counter
-from ..utils.launches import tally_address
+from ..utils.launches import count, tally_address
 from . import pallas_bvh as PB
 
-LAUNCHES = 0       # persistent launches (the renderer's schedule)
-LAUNCHES_ANY_HIT = 0  # those of LAUNCHES in occlusion mode (shadow rays)
-LAUNCHES_GRID = 0  # grid-schedule launches (the A/B only)
-LAUNCHES_TINY = 0  # tiny-stack launches (the overflow check only)
 # The kernel's instances, as csrc/bvh8.cu numbers them.
 INSTANCES = {"persistent": 0, "grid": 1, "tiny": 2}
 
@@ -335,7 +331,6 @@ def _launch(instance: str, qo, qd, packed: PackedMesh8,
     (CUDA tensors only); count it. `stats`, an int64 [3] tensor on the
     card, gets the busy and total lane slots of the pop steps added and the
     deepest stack maxed in."""
-    global LAUNCHES, LAUNCHES_ANY_HIT, LAUNCHES_GRID, LAUNCHES_TINY
     if instance not in INSTANCES:
         raise ValueError(f"instance must be one of {tuple(INSTANCES)}")
     dev = PB.check_rays(qo, qd, t_bound)
@@ -381,12 +376,11 @@ def _launch(instance: str, qo, qd, packed: PackedMesh8,
             rc = fn(*args, blocks, counter.data_ptr(), st, tally, stream)
     PB.raise_on(rc, lib, "bvh8")
     if instance == "persistent":
-        LAUNCHES += 1
-        LAUNCHES_ANY_HIT += int(any_hit)
-    elif instance == "grid":
-        LAUNCHES_GRID += 1
+        count("k2")
+        if any_hit:
+            count("k2_any_hit")
     else:
-        LAUNCHES_TINY += 1
+        count("k2_other")
     res = PB.unpack_out(out, tri)
     return res + (pops,) if return_pops else res
 
@@ -427,7 +421,7 @@ def traverse8(qo, qd, packed: PackedMesh8,
 
     CPU tensors take `traverse8_plain`; CUDA tensors launch the kernel's
     persistent schedule on the current stream (no synchronisation) and
-    count it in LAUNCHES."""
+    count it under `k2`."""
     dev = PB.check_rays(qo, qd, t_bound)
     if dev.type == "cpu":
         PB.check_table("nodes", packed.nodes, ROW, F32, dev)

@@ -16,8 +16,8 @@ gather, which serialises each run of equal indices: with a few materials
 over many lanes it took ~57 ms a launch on an H100 (PERF.md).
 
 The kernel library is built at the first backward on a card (never by a
-render, which takes no gradient). Each `mat_grad` call on the card adds one
-to LAUNCHES and, from the device, one to the `mat_grad` slot of
+render, which takes no gradient). Each `mat_grad` call on the card counts
+under `mat_grad` and, from the device, adds one to the `mat_grad` slot of
 utils/launches.py's tally.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..utils import cuda_build
-from ..utils.launches import tally_address
+from ..utils.launches import count, tally_address
 
 # csrc/mat_grad.cu's partition: a pass-1 block of THREADS threads owns
 # BLOCK_LANES consecutive lanes, thread t the lanes k * THREADS + t of them;
@@ -44,7 +44,6 @@ SUM_THREADS = 256
 # the plain version's material tile: bounds its [blocks, THREADS, tile, C]
 # accumulator (it does not change the sums)
 PLAIN_TILE = 16
-LAUNCHES = 0
 
 
 def _block_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -125,7 +124,6 @@ def _mat_grad_kernel(mat_id: torch.Tensor,
                      m: int) -> torch.Tensor:
     """csrc/mat_grad.cu on the current stream: checks, scratch and output
     by torch.empty, no sync."""
-    global LAUNCHES
     c = len(grads)
     if c not in (1, 3):
         raise ValueError(f"the kernel takes 1 or 3 planes, not {c}")
@@ -158,7 +156,7 @@ def _mat_grad_kernel(mat_id: torch.Tensor,
     if rc != 0:
         raise RuntimeError("mat_grad launch failed: "
                            + lib.mat_grad_error_string(rc).decode())
-    LAUNCHES += 1
+    count("mat_grad")
     return out
 
 

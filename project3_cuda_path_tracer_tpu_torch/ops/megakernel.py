@@ -12,8 +12,9 @@ trace_wavefront) for CPU tensors and launches the kernel for CUDA tensors,
 always in its persistent schedule (warps that refill dead lanes from a
 pixel counter). `_iteration_grid` launches the same kernel in the first
 port's one-thread-per-pixel schedule; only the A/B and the bitwise check
-(chip_smoke.py, the `cuda` test) call it. `LAUNCHES` counts every kernel
-launch, `LAUNCHES_GRID` those of the grid schedule.
+(chip_smoke.py, the `cuda` test) call it. Every launch of either schedule
+counts under `k1` (utils/launches.py), and a grid one under `k1_grid`
+too.
 
 Samplers (the `sampler` argument):
   "philox"     the kernel draws Philox4x32-10 keyed on the seed, counter
@@ -39,9 +40,7 @@ import torch
 from ..scene import types as T
 from ..utils import cuda_build
 from ..utils.device import stream_counter
-
-LAUNCHES = 0       # K1 launches, both schedules
-LAUNCHES_GRID = 0  # of which the grid schedule
+from ..utils.launches import count
 
 MAX_GEOMS = 32
 SAMPLERS = {"philox": 0, "stratified": 1, "uniforms": 2}
@@ -315,7 +314,6 @@ def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
     stream (CUDA tensors only); count it. `stats`, an int64 [2] tensor on
     the card, gets the busy and the total lane slots of the bounce steps
     added."""
-    global LAUNCHES, LAUNCHES_GRID
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {tuple(SCHEDULES)}")
     _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
@@ -346,9 +344,9 @@ def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
         else:
             rc = lib.megakernel_iteration_grid(*args, st, stream)
     _raise_on(rc, lib, "launch")
-    LAUNCHES += 1
+    count("k1")
     if schedule == "grid":
-        LAUNCHES_GRID += 1
+        count("k1_grid")
     return accum
 
 
@@ -389,7 +387,7 @@ def iteration(accum: torch.Tensor, scene_table: torch.Tensor, cfg,
 
     CPU tensors take `iteration_plain`; CUDA tensors launch the kernel's
     persistent schedule on the current stream (no synchronisation) and
-    count it in LAUNCHES."""
+    count it under `k1`."""
     if accum.device.type == "cpu":
         _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
         return iteration_plain(accum, scene_table, cfg, iteration, seed,

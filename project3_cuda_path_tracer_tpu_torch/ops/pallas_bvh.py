@@ -8,17 +8,14 @@ kernels are now one CUDA source, csrc/bvh_binary.cu:
      the skip-pointer tree with its own cursor: slab-test the node, run the
      leaf if it is one and the ray entered it, then go to `cur+1` (an
      interior node the ray entered) or to the node's escape index `skip`.
-     The route's instance is one thread per ray (`grid`): every ray starts
-     at once, and a launch lasts about as long as its longest walks. The
-     `persistent` instance (K2's schedule: a grid that fills the card,
-     `_persistent_blocks`, whose warps take 32-ray chunks from a counter
-     and refill their finished lanes) is the A/B: it loses to `grid` on
-     every bounce of a `pack_all` iteration (PERF.md).
+     One thread per ray (`grid`): every ray starts at once, and a launch
+     lasts about as long as its longest walks.
   K4 (`_traverse_kernel_sub`): the packet form, one cursor per 32-lane warp
-     (the counterpart of one cursor per 128-lane row). Persistent warps
-     form packets of 32 live rays in ray order; the cursor is the smallest
-     node any lane is due at, and a lane steps only at its own next node,
-     so it visits and tests exactly what its K3 walk does.
+     (the counterpart of one cursor per 128-lane row). Persistent warps (a
+     grid that fills the card, `_persistent_blocks`) form packets of 32
+     live rays in ray order; the cursor is the smallest node any lane is
+     due at, and a lane steps only at its own next node, so it visits and
+     tests exactly what its K3 walk does.
 A ray's visits depend only on the ray, so every instance gives the same
 outputs and step counts, bit for bit. A dead ray (t_bound <= 0 or NaN) is
 answered without reading the tree, and the rays are read from the planes
@@ -26,11 +23,11 @@ as they are (a plane is copied only if it is not contiguous).
 
 `traverse()` is the wrapper the integrator calls: CPU tensors take
 `traverse_binary_plain` (a per-ray skip-cursor walk in torch ops, shared by
-K3 and K4); CUDA tensors launch K3's grid instance (LAUNCHES) or, with
-`sub_packets`, K4 (LAUNCHES_SUB). `_launch` reaches every instance (the
-persistent one counted in LAUNCHES_PERSISTENT), for chip_smoke.py and
-tests/test_torch_cuda.py only (CUDA tensors only). Every launch adds one
-to the card's `k3_k4` tally from the kernel itself (utils/launches.py).
+K3 and K4); CUDA tensors launch K3 or, with `sub_packets`, K4, each
+counted under `k3_k4` and K4 under `k4` too (utils/launches.py), and the
+kernel itself adds one to the card's `k3_k4` tally. chip_smoke.py and
+tests/test_torch_cuda.py call `_launch` directly for its `stats` tally
+(CUDA tensors only).
 
 `pack_mesh` turns one mesh of a `MeshBundle` into the kernel's tables, bit
 for bit as the JAX package does:
@@ -61,13 +58,10 @@ from ..scene import types as T
 from ..scene.bvh import LEAF_K
 from ..utils import cuda_build
 from ..utils.device import stream_counter
-from ..utils.launches import tally_address
+from ..utils.launches import count, tally_address
 
-LAUNCHES = 0             # K3 launches of the grid instance (the route's)
-LAUNCHES_PERSISTENT = 0  # K3 persistent-instance launches (the A/B only)
-LAUNCHES_SUB = 0         # K4 launches
 # The kernel's instances, as csrc/bvh_binary.cu numbers them.
-INSTANCES = {"persistent": 0, "grid": 1, "packet": 2}
+INSTANCES = {"grid": 1, "packet": 2}
 
 BIG = 1e30
 TRI_ROW = 24      # v0(3) e1(3) e2(3) n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2)
@@ -365,11 +359,11 @@ def _attributes(instance: str) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _persistent_blocks(device_index: int, instance: str) -> int:
-    """The persistent grid that fills the card: SMs x the instance's
-    resident blocks, worked out once per device and instance."""
+def _persistent_blocks(device_index: int) -> int:
+    """K4's persistent grid that fills the card: SMs x its resident
+    blocks, worked out once per device."""
     with torch.cuda.device(device_index):
-        per_sm = _attributes(instance)[3]
+        per_sm = _attributes("packet")[3]
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return sms * per_sm
 
@@ -393,10 +387,10 @@ def _launch(instance: str, qo, qd, packed: PackedMesh,
             return_steps: bool = False,
             stats: Optional[torch.Tensor] = None):
     """Check the inputs and launch one instance of K3/K4 on the current
-    stream (CUDA tensors only); count it in the instance's counter.
+    stream (CUDA tensors only); count it under `k3_k4`, and K4 under `k4`
+    too.
     `stats`, an int64 [2] tensor on the card, gets the busy and total lane
     slots of the steps added."""
-    global LAUNCHES, LAUNCHES_PERSISTENT, LAUNCHES_SUB
     if instance not in INSTANCES:
         raise ValueError(f"instance must be one of {tuple(INSTANCES)}")
     dev = check_rays(qo, qd, t_bound)
@@ -423,8 +417,8 @@ def _launch(instance: str, qo, qd, packed: PackedMesh,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         blocks, counter = 0, None
-        if instance != "grid":
-            blocks = _persistent_blocks(dev.index, instance)
+        if instance == "packet":
+            blocks = _persistent_blocks(dev.index)
             counter = stream_counter(dev, stream).data_ptr()
         rc = lib.bvh_binary_traverse(
             INSTANCES[instance], *[c.data_ptr() for c in planes],
@@ -434,12 +428,9 @@ def _launch(instance: str, qo, qd, packed: PackedMesh,
             blocks, counter, stats.data_ptr() if stats is not None else None,
             tally_address(dev, "k3_k4"), stream)
     raise_on(rc, lib, "bvh_binary")
-    if instance == "grid":
-        LAUNCHES += 1
-    elif instance == "persistent":
-        LAUNCHES_PERSISTENT += 1
-    else:
-        LAUNCHES_SUB += 1
+    count("k3_k4")
+    if instance == "packet":
+        count("k4")
     res = unpack_out(out, tri)
     return res + (steps,) if return_steps else res
 
@@ -459,9 +450,9 @@ def traverse(qo, qd, packed: PackedMesh,
     `sub_packets` picks K4 over K3 on the card; the results are the same,
     bit for bit.
 
-    CPU tensors take `traverse_binary_plain`; CUDA tensors launch K3's
-    grid instance, one thread per ray (LAUNCHES), or K4 (LAUNCHES_SUB) on
-    the current stream (no synchronisation)."""
+    CPU tensors take `traverse_binary_plain`; CUDA tensors launch K3, one
+    thread per ray, or K4 on the current stream (no synchronisation),
+    counted under `k3_k4`."""
     dev = check_rays(qo, qd, t_bound)
     if dev.type == "cpu":
         check_tables(packed, dev)

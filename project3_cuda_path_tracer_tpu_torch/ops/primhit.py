@@ -14,8 +14,8 @@ train step's camera rays) goes through the plain version,
 and the strict `<` merge) that the kernel repeats bit for bit on the
 card.
 
-The kernel library is built at the first call on a card. Each launch adds
-one to LAUNCHES and, from the device, one to the `prim` slot of
+The kernel library is built at the first call on a card. Each launch counts
+under `prim` and, from the device, adds one to the `prim` slot of
 utils/launches.py's tally.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from ..scene import types as T
 from ..utils import cuda_build
-from ..utils.launches import tally_address
+from ..utils.launches import count, tally_address
 from .vec import V3
 
 # csrc/prim_hit.cu's output rows; the last three only with tangents
@@ -36,7 +36,6 @@ ROWS = ("t", "nx", "ny", "nz", "px", "py", "pz", "sx", "sy", "sz", "u", "v",
         "tx", "ty", "tz")
 TANGENT_ROWS = 3
 BIG = 1e30
-LAUNCHES = 0
 # the kernel's device: `takes` leaves tensors elsewhere to the plain chain
 DEVICE = "cuda"
 
@@ -113,7 +112,6 @@ def _nearest_kernel(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
     torch.empty, no sync. The ray planes go by their strides (an origin
     broadcast from the camera has stride 0); the geom tables and an
     incoming record are made contiguous (a no-op for the renderer's)."""
-    global LAUNCHES
     from .wavefront import HitP, _index_tensor
     dev = o.x.device
     n = o.x.shape[0]
@@ -183,7 +181,7 @@ def _nearest_kernel(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
         if rc != 0:
             raise RuntimeError("prim_hit launch failed: "
                                + lib.prim_hit_error_string(rc).decode())
-        LAUNCHES += 1
+        count("prim")
     return HitP(t=out_t, normal=V3(out[0], out[1], out[2]), mat_id=out_mat,
                 point=V3(out[3], out[4], out[5]),
                 surf=V3(out[6], out[7], out[8]), u=out[9], v=out[10],

@@ -63,7 +63,7 @@ from ..utils import image as img_io
 from ..utils.device import (CapturedGraph, capture_graph, resolve_device,
                             synchronize)
 from ..utils.launches import launch_counts
-from ..utils.profiling import set_counter, span
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1238,22 +1238,12 @@ class Renderer:
 
     def _capture(self) -> None:
         """Capture `_iterate` with the persistent generators registered, as
-        the graph "render". On the card the graph's I1 launches a replay
-        (`CapturedGraph.launches["prim"]`) are kept as the counter
-        `render.prim_launches`, and on a scene with an atlas or an env map
-        its P1 launches as `render.p1_launches`."""
+        the graph "render"."""
         gens = self._draws()
         self._graph = capture_graph(
             lambda: self._iterate(*gens), self.device,
             generators=[g for g in gens if g is not None],
             counters=launch_counts, name="render")
-        if self.device.type == "cuda":
-            set_counter("render.prim_launches",
-                        self._graph.launches.get("prim", 0))
-        tx = self.tables[3]
-        if tx.has_atlas or tx.has_env:
-            set_counter("render.p1_launches",
-                        self._graph.launches.get("p1", 0))
 
     @property
     def graph(self) -> Optional[CapturedGraph]:

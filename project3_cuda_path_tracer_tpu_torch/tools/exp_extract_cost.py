@@ -39,8 +39,8 @@ KINDS = {"extract6": 0, "extract48": 1, "vector8": 2}
 ROW0_SCALARS = {"extract6": 6, "extract48": 48, "vector8": 6}  # into row 0
 PLAIN_STEPS = 256    # the plain version's loop on the card (eager ops)
 # SHA-256 of the state's bytes after STEPS steps from `inputs()`: the
-# output of the first port's one-block kernel (commit 6e06402, through
-# tools/probe_ab.py on the card), which the plain version also gives.
+# output of the first port's one-block kernel (commit 6e06402, run on the
+# card), which the plain version also gives.
 SHA256_STEPS = {
     "extract6":
         "599fb960535812908244f97418ea3707c188448982d8c05febbc58f658399c24",

@@ -1,12 +1,12 @@
-"""The launch counts of the hand-written kernels, read and zeroed in one
-place: K1 (`ops/megakernel.py`), K2 (`ops/bvh8.py`), K3 and K4
-(`ops/pallas_bvh.py`), P1 (`tools/exp_gather.py`), G1, the material
-gather's backward (`ops/matgrad.py`), and I1, the analytic primitives'
-nearest hit (`ops/primhit.py`).
+"""The launch counts of the hand-written kernels, kept in one place: K1
+(`ops/megakernel.py`), K2 (`ops/bvh8.py`), K3 and K4
+(`ops/pallas_bvh.py`), P1 (`ops/texfetch.py`), G1, the material gather's
+backward (`ops/matgrad.py`), and I1, the analytic primitives' nearest hit
+(`ops/primhit.py`).
 
-Two kinds. Each wrapper adds one to its module's counter where it enqueues
-a launch (`launch_counts`). Under a CUDA graph's capture that happens once,
-without the kernel running, and a replay runs the captured launches with no
+Two kinds. Each wrapper calls `count(key)` where it enqueues a launch
+(`launch_counts`). Under a CUDA graph's capture that happens once, without
+the kernel running, and a replay runs the captured launches with no
 wrapper call: a captured graph keeps the counters' increase over its
 capture as its launches a replay (`utils.device.CapturedGraph.launches`).
 And the kernels of the wavefront route (K2, K3/K4, P1, I1) add one to a tally
@@ -19,25 +19,26 @@ from typing import Dict
 
 import torch
 
+_COUNTS: Dict[str, int] = dict.fromkeys(
+    ("k1", "k1_grid", "k2", "k2_any_hit", "k2_other", "k3_k4", "k4", "p1",
+     "p1_ab", "mat_grad", "prim"), 0)
+
+
+def count(key: str) -> None:
+    """One launch more under `key`, one of `launch_counts`' keys (another
+    raises KeyError)."""
+    _COUNTS[key] += 1
+
 
 def launch_counts() -> Dict[str, int]:
-    """The counters: `k1` (both schedules), `k2` (the persistent instance,
-    the renderer's), `k2_any_hit` (those of `k2` in occlusion mode),
-    `k2_other` (K2's grid and tiny-stack instances), `k3_k4` (every binary
-    tree instance), `p1` (the texel gather), `p1_ab` (its A/B entry),
-    `mat_grad` (G1, a call of its two passes), `prim` (I1)."""
-    from ..ops import bvh8 as P8
-    from ..ops import matgrad as MG
-    from ..ops import megakernel as mk
-    from ..ops import pallas_bvh as PB
-    from ..ops import primhit as I1
-    from ..tools import exp_gather as P1
-    return dict(k1=mk.LAUNCHES + mk.LAUNCHES_GRID, k2=P8.LAUNCHES,
-                k2_any_hit=P8.LAUNCHES_ANY_HIT,
-                k2_other=P8.LAUNCHES_GRID + P8.LAUNCHES_TINY,
-                k3_k4=PB.LAUNCHES + PB.LAUNCHES_PERSISTENT + PB.LAUNCHES_SUB,
-                p1=P1.LAUNCHES, p1_ab=P1.LAUNCHES_AB, mat_grad=MG.LAUNCHES,
-                prim=I1.LAUNCHES)
+    """A copy of the counters: `k1` (both schedules), `k1_grid` (those of
+    `k1` in the grid schedule), `k2` (the persistent instance, the
+    renderer's), `k2_any_hit` (those of `k2` in occlusion mode), `k2_other`
+    (K2's grid and tiny-stack instances), `k3_k4` (K3 and K4), `k4` (those
+    of `k3_k4` that are K4), `p1` (the texel gather), `p1_ab` (its entry
+    for the bitwise checks, `_gather_instance`), `mat_grad` (G1, a call of
+    its two passes), `prim` (I1)."""
+    return dict(_COUNTS)
 
 
 # the device tallies' slots, each the launches of what `launch_counts`
@@ -77,18 +78,7 @@ def device_launches() -> Dict[str, int]:
 
 def zero_launch_counts() -> None:
     """Every counter and tally to 0."""
-    from ..ops import bvh8 as P8
-    from ..ops import matgrad as MG
-    from ..ops import megakernel as mk
-    from ..ops import pallas_bvh as PB
-    from ..ops import primhit as I1
-    from ..tools import exp_gather as P1
-    mk.LAUNCHES = mk.LAUNCHES_GRID = 0
-    P8.LAUNCHES = P8.LAUNCHES_ANY_HIT = P8.LAUNCHES_GRID = 0
-    P8.LAUNCHES_TINY = 0
-    PB.LAUNCHES = PB.LAUNCHES_PERSISTENT = PB.LAUNCHES_SUB = 0
-    P1.LAUNCHES = P1.LAUNCHES_AB = 0
-    MG.LAUNCHES = 0
-    I1.LAUNCHES = 0
+    for key in _COUNTS:
+        _COUNTS[key] = 0
     for tally in _TALLIES.values():
         tally.zero_()

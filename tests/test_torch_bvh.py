@@ -28,6 +28,7 @@ from project3_cuda_path_tracer_tpu.scene import bvh as JB
 from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
 from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from project3_cuda_path_tracer_tpu_torch.scene.convert import (
     mesh_bundle_from_numpy, packed_mesh_from_numpy)
 
@@ -322,8 +323,7 @@ def test_any_hit_matches_nearest_hit_mask(blob):
 def test_wrapper_takes_plain_path_on_cpu(kind, torus):
     packed = _packed(kind, torus[1])
     o, d = (_torch(a) for a in _aimed_rays(256, seed=3))
-    before = (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT,
-              PPB.LAUNCHES_SUB)
+    before = launch_counts()
     if kind == "bvh8":
         got = P8.traverse8(o, d, packed, return_pops=True)
         want = P8.traverse8_plain(o, d, packed)
@@ -333,8 +333,7 @@ def test_wrapper_takes_plain_path_on_cpu(kind, torus):
                            return_steps=True)
         want = PPB.traverse_binary_plain(o, d, packed)
     assert torch.equal(got[5], want[5])
-    assert (P8.LAUNCHES, PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT,
-            PPB.LAUNCHES_SUB) == before
+    assert launch_counts() == before
     assert torch.equal(got[4], want[4]) and torch.equal(got[0], want[0])
 
 
@@ -360,26 +359,22 @@ def test_wrapper_rejects_bad_inputs(kind, bad, torus):
 @pytest.mark.parametrize("kind", KINDS)
 def test_grid_schedule_refuses_cpu_tensors(kind, torus):
     """The A/B instances are the card's checks only: K2's grid and
-    tiny-stack instances, K3's persistent instance and K4's entry raise on
-    CPU tensors (they never fall back to the plain version), and so does
-    each kernel's `_launch` of its route's instance; no launch is
-    counted."""
+    tiny-stack instances and K4's entry raise on CPU tensors (they never
+    fall back to the plain version), and so does each kernel's `_launch`
+    of its route's instance; no launch is counted."""
     packed = _packed(kind, torus[1])
     o, d = (_torch(a) for a in _aimed_rays(64))
-    counts = (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PPB.LAUNCHES,
-              PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB)
+    counts = launch_counts()
     if kind == "bvh8":
         entries = (P8._traverse8_grid, P8._traverse8_tiny,
                    lambda *a: P8._launch("persistent", *a))
     else:
-        entries = (lambda *a: PPB._launch("persistent", *a),
-                   lambda *a: PPB._launch("packet", *a),
+        entries = (lambda *a: PPB._launch("packet", *a),
                    lambda *a: PPB._launch("grid", *a))
     for entry in entries:
         with pytest.raises(ValueError, match="CUDA"):
             entry(o, d, packed)
-    assert (P8.LAUNCHES, P8.LAUNCHES_GRID, P8.LAUNCHES_TINY, PPB.LAUNCHES,
-            PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB) == counts
+    assert launch_counts() == counts
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -407,11 +402,3 @@ def test_traverse8_cpu_takes_noncontiguous_planes(kind, torus):
         assert torch.equal(g, w)
     assert (got[4] >= 0).sum() > 150
 
-
-def test_k3_ab_refuses_a_baseline_of_another_interface():
-    """tools/k3_ab.py binds only the stacked-ray kernel's C entry: a
-    checkout whose bvh_binary.cu reads planar rays (this one) is refused
-    before anything is built."""
-    from project3_cuda_path_tracer_tpu_torch.tools import k3_ab
-    with pytest.raises(ValueError, match="stacked-ray"):
-        k3_ab.build_baseline(REPO)

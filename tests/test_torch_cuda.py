@@ -40,8 +40,10 @@ from project3_cuda_path_tracer_tpu_torch.render.integrator import (
     build_trace_config, same_state)
 from project3_cuda_path_tracer_tpu_torch.scene import bvh as PB
 from project3_cuda_path_tracer_tpu_torch.tools import exp_extract_cost as P2
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
 from project3_cuda_path_tracer_tpu_torch.utils import launches
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
+
 
 import torch_matgrad_cases as MGC
 
@@ -94,13 +96,13 @@ def test_kernel_matches_plain_on_card():
     table = mk.pack_scene(scene, dev)
     n = 64 * 64
     cam_u, u = _uniforms(0, cfg.trace_depth, n, dev)
-    before = mk.LAUNCHES
+    before = launch_counts()["k1"]
     got = mk.iteration(torch.zeros((64, 64, 3), device=dev), table, cfg, 0,
                        0, "uniforms", cam_u, u)
     want = mk.iteration_plain(torch.zeros((64, 64, 3), device=dev), table,
                               cfg, 0, 0, "uniforms", cam_u, u)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES == before + 1
+    assert launch_counts()["k1"] == before + 1
     assert_lane_contract(got.reshape(n, 3).T.cpu().numpy(),
                          want.reshape(n, 3).T.cpu().numpy())
 
@@ -123,11 +125,13 @@ def test_schedules_equal_bitwise_on_card(sampler):
     if sampler == "uniforms":
         cam_u, u = _uniforms(4, cfg.trace_depth, n, dev)
     args = (table, cfg, 3, 5, sampler, cam_u, u)
-    before = (mk.LAUNCHES, mk.LAUNCHES_GRID)
+    before = launch_counts()
     pers = mk.iteration(torch.zeros((res, res, 3), device=dev), *args)
     grid = mk._iteration_grid(torch.zeros((res, res, 3), device=dev), *args)
     torch.cuda.synchronize()
-    assert (mk.LAUNCHES, mk.LAUNCHES_GRID) == (before[0] + 2, before[1] + 1)
+    after = launch_counts()
+    assert (after["k1"], after["k1_grid"]) == (before["k1"] + 2,
+                                               before["k1_grid"] + 1)
     assert torch.equal(pers, grid) and float(pers.sum()) > 0
     if sampler != "philox":
         want = mk.iteration_plain(torch.zeros((res, res, 3), device=dev),
@@ -200,18 +204,21 @@ def test_k2_schedules_equal_bitwise_on_card(any_hit):
     """K2's persistent instance (traverse8, the renderer's) and its grid
     instance (the first port's one thread per ray) give t, normal, uv, tri
     and pops bit for bit on the torus, dead lanes included, and each is
-    counted in its own LAUNCHES; they match the plain version."""
+    counted under its own key; they match the plain version."""
     _need_card()
     dev = torch.device("cuda")
     p8, o, d, tb = _k2_inputs(dev)
-    before = (P8.LAUNCHES, P8.LAUNCHES_GRID)
+    before = launch_counts()
     pers = P8.traverse8(o, d, p8, t_bound=tb, any_hit=any_hit,
                         return_pops=True)
     grid = P8._traverse8_grid(o, d, p8, t_bound=tb, any_hit=any_hit,
                               return_pops=True)
     want = P8.traverse8_plain(o, d, p8, t_bound=tb, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert (P8.LAUNCHES, P8.LAUNCHES_GRID) == (before[0] + 1, before[1] + 1)
+    after = launch_counts()
+    assert (after["k2"], after["k2_any_hit"], after["k2_other"]) == (
+        before["k2"] + 1, before["k2_any_hit"] + int(any_hit),
+        before["k2_other"] + 1)
     assert _same_bits(pers, grid)
     assert int((pers[4] >= 0).sum()) > 1000
     assert (pers[4] == want[4]).float().mean() >= 0.99
@@ -229,12 +236,14 @@ def test_k2_small_stack_equal_bitwise_on_card(any_hit):
     dev = torch.device("cuda")
     p8, o, d, tb = _k2_inputs(dev)
     stats = torch.zeros((3,), dtype=torch.int64, device=dev)
-    before = (P8.LAUNCHES, P8.LAUNCHES_TINY)
+    before = launch_counts()
     tiny = P8._traverse8_tiny(o, d, p8, tb, any_hit, True, stats=stats)
     main = P8.traverse8(o, d, p8, t_bound=tb, any_hit=any_hit,
                         return_pops=True)
     torch.cuda.synchronize()
-    assert (P8.LAUNCHES, P8.LAUNCHES_TINY) == (before[0] + 1, before[1] + 1)
+    after = launch_counts()
+    assert (after["k2"], after["k2_other"]) == (before["k2"] + 1,
+                                                before["k2_other"] + 1)
     assert int(stats[2]) > 2  # the stack did overflow
     assert 0 < int(stats[0]) <= int(stats[1])
     assert _same_bits(tiny, main)
@@ -262,8 +271,9 @@ def test_probe_kernels_match_plain_on_card(probe):
     """On the card: the kernels equal their plain versions bit for bit."""
     _need_card()
     if probe == "gather":
-        table, _, idx = P1.inputs(256, n=1 << 20)
-        got, want = P1.gather(table, idx), P1.gather_plain(table, idx)
+        table, _, idx = exp_gather.inputs(256, n=1 << 20)
+        got = texfetch.gather(table, idx)
+        want = texfetch.gather_plain(table, idx)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     else:
         table, state = P2.inputs()
@@ -296,19 +306,18 @@ def test_mat_grad_kernel_matches_plain_on_card(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("texels", [128 * 128, 256 * 256, 512 * 256])
 def test_gather_instances_equal_plain_on_card(texels):
-    """Every instance that can hold the table (block, cluster of 2 or 4,
-    L2) and the wrapper's pick equal `gather_plain` bit for bit, 1M
-    indices."""
+    """Every instance that can hold the table (block, L2) and the wrapper's
+    pick equal `gather_plain` bit for bit, 1M indices."""
     _need_card()
-    table, _, idx = P1.inputs((texels, 1), n=1 << 20)
-    want = P1.gather_plain(table, idx).view(torch.int32)
-    fits = [k for k in P1.INSTANCES
-            if P1.slice_bytes(texels, k) <= P1.SLICE_BYTES]
-    assert P1.instance_for(texels * 4) in fits
+    table, _, idx = exp_gather.inputs((texels, 1), n=1 << 20)
+    want = texfetch.gather_plain(table, idx).view(torch.int32)
+    fits = [k for k in texfetch.INSTANCES
+            if texfetch.slice_bytes(texels, k) <= texfetch.SLICE_BYTES]
+    assert texfetch.instance_for(texels * 4) in fits
     for k in fits:
-        got = P1._gather_instance(k, table, idx)
-        assert torch.equal(got.view(torch.int32), want), P1.INSTANCES[k]
-    assert torch.equal(P1.gather(table, idx).view(torch.int32), want)
+        got = texfetch._gather_instance(k, table, idx)
+        assert torch.equal(got.view(torch.int32), want), texfetch.INSTANCES[k]
+    assert torch.equal(texfetch.gather(table, idx).view(torch.int32), want)
 
 
 @pytest.mark.cuda
@@ -320,7 +329,7 @@ def test_gather_edges_on_card(n):
     256 KB and 512 KB sizes."""
     _need_card()
     for texels in (256 * 256, 512 * 256):
-        table, _, idx = P1.inputs((texels, 1), n=1 << 20, seed=3)
+        table, _, idx = exp_gather.inputs((texels, 1), n=1 << 20, seed=3)
         if n == "offset":
             idx = idx[1:1 + 4099]
             assert idx.data_ptr() % 16 == 4
@@ -334,16 +343,16 @@ def test_gather_edges_on_card(n):
                 torch.randint(0, texels, (n,), dtype=torch.int32,
                               device="cuda")
         inside = (idx >= 0) & (idx < texels)
-        want = torch.where(inside, P1.gather_plain(
+        want = torch.where(inside, texfetch.gather_plain(
             table, torch.where(inside, idx, 0)).view(torch.int32), 0)
-        for k in P1.INSTANCES:
-            if P1.slice_bytes(texels, k) > P1.SLICE_BYTES:
+        for k in texfetch.INSTANCES:
+            if texfetch.slice_bytes(texels, k) > texfetch.SLICE_BYTES:
                 continue
-            got = P1._gather_instance(k, table, idx)
+            got = texfetch._gather_instance(k, table, idx)
             torch.cuda.synchronize()
             assert got.shape == idx.shape
             assert torch.equal(got.view(torch.int32), want), \
-                (P1.INSTANCES[k], texels)
+                (texfetch.INSTANCES[k], texels)
 
 
 @pytest.mark.cuda
@@ -383,33 +392,27 @@ def _binary_inputs(n, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("instance", ["persistent", "packet", "grid stats"])
+@pytest.mark.parametrize("instance", ["packet", "grid stats"])
 def test_k3_instances_equal_bitwise_on_card(instance):
-    """K3's grid instance (the route's) against K3's persistent instance,
-    K4 (warp packets) and the grid instance asked for `stats` (which votes
-    every step): t, normal, uv, tri and node visits bit for bit on the
-    torus, dead lanes included, each counted in its instance's LAUNCHES,
-    and all equal to the plain version; a dead lane
-    keeps t = t_bound with one visit; `stats` counts busy <= total lane
-    slots."""
+    """K3 (the route's grid instance) against K4 (warp packets) and the
+    grid instance asked for `stats` (which votes every step): t, normal,
+    uv, tri and node visits bit for bit on the torus, dead lanes included,
+    each launch counted under `k3_k4` and K4's under `k4` too, and all
+    equal to the plain version; a dead lane keeps t = t_bound with one
+    visit; `stats` counts busy <= total lane slots."""
     _need_card()
     dev = torch.device("cuda")
     pb, o, d, tb = _binary_inputs(4096, dev)
-    counts = (PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB)
+    before = launch_counts()
     stats = torch.zeros((2,), dtype=torch.int64, device=dev)
     route = PPB.traverse(o, d, pb, t_bound=tb, return_steps=True)
-    if instance == "persistent":
-        other = PPB._launch("persistent", o, d, pb, tb, True, stats)
-        want = (counts[0] + 1, counts[1] + 1, counts[2])
-    elif instance == "packet":
-        other = PPB._launch("packet", o, d, pb, tb, True, stats)
-        want = (counts[0] + 1, counts[1], counts[2] + 1)
-    else:
-        other = PPB._launch("grid", o, d, pb, tb, True, stats)
-        want = (counts[0] + 2, counts[1], counts[2])
+    other = PPB._launch("packet" if instance == "packet" else "grid", o, d,
+                        pb, tb, True, stats)
     plain = PPB.traverse_binary_plain(o, d, pb, t_bound=tb)
     torch.cuda.synchronize()
-    assert (PPB.LAUNCHES, PPB.LAUNCHES_PERSISTENT, PPB.LAUNCHES_SUB) == want
+    after = launch_counts()
+    assert (after["k3_k4"], after["k4"]) == (
+        before["k3_k4"] + 2, before["k4"] + (instance == "packet"))
     assert _same_bits(route, other) and _same_bits(route, plain)
     assert int((route[4] >= 0).sum()) > 1000
     dead = ~(tb > 0)
@@ -431,7 +434,7 @@ def test_k3_k4_edge_counts_on_card(n):
     if n == "all dead":
         tb = torch.full_like(tb, -1.0)
     plain = PPB.traverse_binary_plain(o, d, pb, t_bound=tb)
-    for instance in ("persistent", "grid", "packet"):
+    for instance in PPB.INSTANCES:
         got = PPB._launch(instance, o, d, pb, tb, True)
         torch.cuda.synchronize()
         assert _same_bits(got, plain), instance
@@ -515,7 +518,7 @@ def test_k2_any_hit_shadow_rays_match_plain_on_card(tmp_path):
                            tuple(c.clone() for c in qd), t_bound.clone()))
         return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
                       **kwargs)
-    before = P8.LAUNCHES
+    before = launch_counts()["k2"]
     P8.traverse8 = capture
     try:
         r.step()
@@ -524,7 +527,7 @@ def test_k2_any_hit_shadow_rays_match_plain_on_card(tmp_path):
     torch.cuda.synchronize()
     depth = scene.settings.trace_depth
     assert len(waves) == depth - 1
-    assert P8.LAUNCHES == before + depth + len(waves)
+    assert launch_counts()["k2"] == before + depth + len(waves)
     packed = r.packed_meshes[0]
     for qo, qd, tb in waves:
         got = P8.traverse8(qo, qd, packed, t_bound=tb, any_hit=True,
@@ -591,8 +594,8 @@ def test_nee_iteration_card_matches_cpu(name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("table", ["shared", "fused"])
 def test_texfetch_matches_plain_on_card(table):
-    """ops/texfetch.take_u32 on the card is P1 (counted in
-    exp_gather.LAUNCHES), bit for bit with gather_plain: on a 64 KB table
+    """ops/texfetch.take_u32 on the card is P1 (counted under `p1`), bit
+    for bit with gather_plain: on a 64 KB table
     (the shared-memory instance) and on textured_env's 1.5 MB fused
     atlas+env table (the L2 instance), with 2048x2048 lanes; take_f32
     carries float bits; an int64 or strided index raises."""
@@ -607,17 +610,17 @@ def test_texfetch_matches_plain_on_card(table):
         tab = tx.fused_packed.cuda()
         assert tab.numel() == 512 * 512 + 512 * 256
     want_k = 1 if table == "shared" else 0
-    assert P1.instance_for(tab.numel() * 4) == want_k
+    assert texfetch.instance_for(tab.numel() * 4) == want_k
     idx = torch.from_numpy(rng.integers(0, tab.numel(), 2048 * 2048)
                            .astype(np.int32)).cuda()
-    before = P1.LAUNCHES
+    before = launch_counts()["p1"]
     got = texfetch.take_u32(tab, idx)
     torch.cuda.synchronize()
-    assert P1.LAUNCHES == before + 1
-    assert torch.equal(got, P1.gather_plain(tab, idx))
+    assert launch_counts()["p1"] == before + 1
+    assert torch.equal(got, texfetch.gather_plain(tab, idx))
     f = tab.view(torch.float32)
     assert torch.equal(texfetch.take_f32(f, idx).view(torch.int32),
-                       P1.gather_plain(tab, idx))
+                       texfetch.gather_plain(tab, idx))
     with pytest.raises(TypeError):
         texfetch.take_u32(tab, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
@@ -646,10 +649,11 @@ def test_textured_iteration_card_matches_cpu(name, flags):
         scene.settings.bilinear = scene.settings.bilinear_fast
         r = Renderer(scene, device=dev)
         assert r.route == "wavefront"
-        before = P1.LAUNCHES
+        before = launch_counts()["p1"]
         imgs.append(r.render(1).reshape(-1, 3).T.cpu().numpy())
         if dev == "cuda":
-            assert (P1.LAUNCHES > before) == (name == "textured_env")
+            assert (launch_counts()["p1"] > before) == (
+                name == "textured_env")
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0
     assert_lane_contract(imgs[0], imgs[1])
 
@@ -688,14 +692,14 @@ def test_k2_on_compacted_wavefront_matches_plain_on_card(tmp_path):
                        tuple(c.clone() for c in qd), t_bound.clone()))
         return kernel(qo, qd, packed, t_bound=t_bound, any_hit=any_hit,
                       **kwargs)
-    before = P8.LAUNCHES
+    before = launch_counts()["k2"]
     P8.traverse8 = capture
     try:
         r.step()
     finally:
         P8.traverse8 = kernel
     torch.cuda.synchronize()
-    assert len(waves) == 4 and P8.LAUNCHES == before + 4
+    assert len(waves) == 4 and launch_counts()["k2"] == before + 4
     dead = ~(waves[1][2] > 0)
     runs = int(dead[0]) + int((dead[1:] & ~dead[:-1]).sum())
     assert 0 < int(dead.sum()) < dead.numel()

@@ -35,6 +35,7 @@ from project3_cuda_path_tracer_tpu_torch.render.integrator import \
     build_trace_config
 from project3_cuda_path_tracer_tpu_torch.scene import types as PT
 from project3_cuda_path_tracer_tpu_torch.scene.convert import scene_from_numpy
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from test_torch_cuda import assert_lane_contract
 
 torch.set_num_threads(2)
@@ -191,9 +192,9 @@ def _wrapper_inputs(res=12, depth=3):
 @pytest.mark.parametrize("sampler", ["philox", "stratified"])
 def test_wrapper_takes_plain_path_on_cpu(sampler):
     cfg, table, acc = _wrapper_inputs()
-    before = mk.LAUNCHES
+    before = launch_counts()
     out = mk.iteration(acc, table, cfg, 2, 5, sampler)
-    assert out is acc and mk.LAUNCHES == before
+    assert out is acc and launch_counts() == before
     want = mk.iteration_plain(torch.zeros_like(acc), table, cfg, 2, 5,
                               sampler)
     assert torch.equal(acc, want) and acc.sum() > 0
@@ -227,7 +228,7 @@ def test_grid_schedule_needs_cuda_tensors():
     """The grid schedule exists for the A/B on the card: CPU tensors raise
     rather than take the plain version, and nothing is counted."""
     cfg, table, acc = _wrapper_inputs()
-    before = (mk.LAUNCHES, mk.LAUNCHES_GRID)
+    before = launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         mk._iteration_grid(acc, table, cfg, 0, 0, "philox")
-    assert (mk.LAUNCHES, mk.LAUNCHES_GRID) == before
+    assert launch_counts() == before

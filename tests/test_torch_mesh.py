@@ -33,6 +33,7 @@ from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
 from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
 from project3_cuda_path_tracer_tpu_torch.ops.vec import V3
 from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from project3_cuda_path_tracer_tpu_torch.scene.convert import (
     mesh_bundle_from_numpy, packed_mesh_from_numpy, scene_from_numpy)
 from test_torch_megakernel import assert_lane_contract
@@ -299,10 +300,10 @@ def _tiny_mesh_scene(tmp_path):
 
 def test_cli_mesh_scene(tmp_path, capsys):
     scene = _tiny_mesh_scene(tmp_path)
-    before = (mk.LAUNCHES, P8.LAUNCHES)
+    before = launch_counts()
     rc = cli.main([scene, "--device", "cpu", "--iterations", "2",
                    "--outdir", str(tmp_path), "--metrics"])
-    assert rc == 0 and (mk.LAUNCHES, P8.LAUNCHES) == before
+    assert rc == 0 and launch_counts() == before
     png = tmp_path / "tiny_mesh.png"
     assert png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     rec = json.loads(capsys.readouterr().err.strip().splitlines()[-1])

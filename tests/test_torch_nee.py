@@ -39,12 +39,11 @@ from project3_cuda_path_tracer_tpu.render import integrator as JI
 from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
 from project3_cuda_path_tracer_tpu_torch.models import inverse as PInv
 from project3_cuda_path_tracer_tpu_torch.models import optim
-from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
 from project3_cuda_path_tracer_tpu_torch.ops import nee as pnee
 from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
 from project3_cuda_path_tracer_tpu_torch.ops.vec import V3
 from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from test_torch_megakernel import assert_lane_contract
 
 torch.set_num_threads(2)
@@ -301,12 +300,12 @@ def test_occlusion_bits_match_jax(tmp_path, name):
     po = V3(*(_t(o[:, i]) for i in range(3)))
     pd = V3(*(_t(d[:, i]) for i in range(3)))
     kw = dict(alive=_t(alive), max_t=_t(max_t))
-    calls = P8.LAUNCHES
+    calls = launch_counts()
     ph = wf.intersect_planar(po, pd, torch.zeros(n), ps.geoms, gt,
                              ps.packed_meshes, mids, any_hit=True, **kw)
     near = wf.intersect_planar(po, pd, torch.zeros(n), ps.geoms, gt,
                                ps.packed_meshes, mids, **kw)
-    assert P8.LAUNCHES == calls  # CPU tensors: the plain traversal
+    assert launch_counts() == calls  # CPU tensors: the plain traversal
     occl = ph.t.numpy() > 0
     assert 0.05 < occl.mean() < 0.95
     assert (ph.t.numpy()[~occl] == -1.0).all()
@@ -521,14 +520,14 @@ def test_route_and_drops(tmp_path, capsys):
     for name in ("no_lights", "ellipsoid"):
         _, ps = both(tmp_path, name)
         ps.settings.restir = 2
-        before = mk.LAUNCHES
+        before = launch_counts()
         r = Renderer(ps, device="cpu")
         assert not r.cfg.nee and not r.cfg.restir and r.reservoir is None
         err = capsys.readouterr().err.strip().splitlines()
         assert len(err) == 1 and err[0].startswith("features dropped: nee")
         assert "restir" in err[0]
         r.render(2)
-        assert np.isfinite(r.image()).all() and mk.LAUNCHES == before
+        assert np.isfinite(r.image()).all() and launch_counts() == before
 
 
 def test_light_draws_keep_the_base_stream(tmp_path):

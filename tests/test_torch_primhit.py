@@ -38,7 +38,7 @@ from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
 from project3_cuda_path_tracer_tpu_torch.ops.vec import V3
 from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
 from project3_cuda_path_tracer_tpu_torch.scene import types as T
-from project3_cuda_path_tracer_tpu_torch.utils import launches, profiling
+from project3_cuda_path_tracer_tpu_torch.utils import launches
 
 torch.set_num_threads(2)
 
@@ -433,7 +433,7 @@ def whole_against_chain(query, monkeypatch):
     with torch.no_grad():
         launches.zero_launch_counts()
         got = wf.intersect_planar(o, d, times, geoms, types, *args, **kw)
-        ran = I1.LAUNCHES
+        ran = launches.launch_counts()["prim"]
         monkeypatch.setattr(I1, "takes", lambda *a, **k: False)
         want = wf.intersect_planar(o, d, times, geoms, types, *args, **kw)
         monkeypatch.undo()
@@ -485,7 +485,7 @@ def test_ties_keep_the_first_geom_on_card(split, tmp_path):
     with torch.no_grad():
         hit = wf.intersect_planar(o, d, times, geoms, cfg.geom_types,
                                   sdf_kinds=cfg.sdf_kinds)
-    assert I1.LAUNCHES == (2 if split else 1)
+    assert launches.launch_counts()["prim"] == (2 if split else 1)
     assert bool((hit.t > 0).all()) and bool((hit.mat_id == 1).all())
 
 
@@ -493,12 +493,11 @@ def test_ties_keep_the_first_geom_on_card(split, tmp_path):
 @pytest.mark.parametrize("case,per_replay", [("cornell_nee", 15),
                                              ("mesh", 8),
                                              ("textured_env", 8)])
-def test_render_graph_replays_count_prim_launches_on_card(case, per_replay):
+def test_render_graph_replays_count_i1_launches_on_card(case, per_replay):
     """The render graph's replays equal step() bit for bit, the capture
     holds `per_replay` I1 launches (one a bounce; with NEE one more a
-    shadow query, none after the last bounce), kept as the counter
-    `render.prim_launches`, and each replay runs them (the device
-    tally)."""
+    shadow query, none after the last bounce), and each replay runs them
+    (the device tally)."""
     _need_card()
     name = "cornell" if case == "cornell_nee" else case
     extra = dict(nee=True) if case == "cornell_nee" else {}
@@ -514,5 +513,4 @@ def test_render_graph_replays_count_prim_launches_on_card(case, per_replay):
     g = chunk.graph
     assert g is not None and g.replays == n - 1
     assert g.launches["prim"] == per_replay
-    assert profiling.counters()["render.prim_launches"] == per_replay
     assert launches.device_launches()["prim"] == n * per_replay

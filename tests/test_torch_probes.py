@@ -1,5 +1,6 @@
-"""The probes P1 (texel gather) and P2 (dependent-load chain) of the port's
-tools/ against the JAX probes' Pallas kernels, run in interpret mode.
+"""The probes P1 (texel gather, ops/texfetch.py) and P2 (dependent-load
+chain, tools/exp_extract_cost.py) of the port against the JAX probes'
+Pallas kernels, run in interpret mode.
 
 The Pallas kernel bodies are nested inside the JAX tools' main(), so this
 file carries a copy of each (tools/exp_gather.py:88-89, the `dgather`
@@ -15,8 +16,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from project3_cuda_path_tracer_tpu_torch.ops import texfetch as P1
 from project3_cuda_path_tracer_tpu_torch.tools import exp_extract_cost as P2
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 
 LANES = 128
 
@@ -61,7 +64,7 @@ def test_gather_plain_matches_pallas_dgather():
     assert got.dtype == torch.uint32 and got.shape == (32768,)
     np.testing.assert_array_equal(got.view(torch.int32).numpy().view(
         np.uint32), want)
-    assert P1.LAUNCHES == 0
+    assert launch_counts()["p1"] == 0
 
 
 def test_gather_keeps_index_shape_and_checks_inputs():
@@ -173,21 +176,17 @@ def test_lane_sum_is_the_halving_tree():
 def test_instance_is_picked_by_table_size(table_bytes, k):
     """The probe's 64 KB and 256 KB atlases, sky.hdr's 512 KB and a 4 MB
     table: the block instance while one block's shared memory holds the
-    table, the L2 instance above. The cluster instances that the A/B
-    holds against L2 can hold the 256 KB and 512 KB tables."""
+    table, the L2 instance above."""
     assert P1.instance_for(table_bytes) == k
     texels = table_bytes // 4
     assert (P1.slice_bytes(texels, 1) <= P1.SLICE_BYTES) == (k == 1)
-    if table_bytes <= 512 << 10:
-        assert P1.slice_bytes(texels, 4) <= P1.SLICE_BYTES
+    assert P1.slice_bytes(texels, 0) == 0
 
 
 def test_slices_cover_the_table_on_16_byte_bounds():
     for texels in (1, 5, 16384, 65536, 65537, 131072):
-        for k in (1, 2, 4):
-            words = P1.slice_bytes(texels, k) // 4
-            assert words % 4 == 0 and words * k >= texels
-            assert words - 4 < -(-texels // k)
+        words = P1.slice_bytes(texels, 1) // 4
+        assert words % 4 == 0 and words >= texels and words - 4 < texels
 
 
 def _warp_order_sum(x: np.ndarray) -> np.float32:
@@ -225,7 +224,8 @@ def test_warp_order_is_the_halving_tree(seed):
 
 def test_gather_plain_matches_numpy_at_sky_size():
     """The 512 KB sky table (131,072 texels) with 1M indices."""
-    table, _, idx = P1.inputs(P1.SKY, n=1 << 20, device="cpu")
+    table, _, idx = exp_gather.inputs(exp_gather.SKY, n=1 << 20,
+                                      device="cpu")
     assert table.numel() == 131072
     flat = table.view(torch.int32).numpy().view(np.uint32)
     got = P1.gather(table, idx)
@@ -257,15 +257,7 @@ def test_gather_instances_need_cuda_tensors():
     for k in P1.INSTANCES:
         with pytest.raises(ValueError):
             P1._gather_instance(k, table, idx)
-    with pytest.raises(ValueError):
-        P1._gather_instance(3, table, idx)
-    assert P1.LAUNCHES_AB == 0
-
-
-def test_probe_ab_refuses_a_baseline_without_its_entries(tmp_path):
-    from project3_cuda_path_tracer_tpu_torch.tools import probe_ab
-    csrc = tmp_path / "project3_cuda_path_tracer_tpu_torch" / "csrc"
-    csrc.mkdir(parents=True)
-    (csrc / "gather.cu").write_text("extern \"C\" int other(void);\n")
-    with pytest.raises(ValueError, match="gather_u32"):
-        probe_ab.build_baseline(str(tmp_path), "gather")
+    for k in (2, 3, 4):
+        with pytest.raises(ValueError, match="instance must be one of"):
+            P1._gather_instance(k, table, idx)
+    assert launch_counts()["p1_ab"] == 0

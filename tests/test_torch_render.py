@@ -23,8 +23,8 @@ from project3_cuda_path_tracer_tpu import Renderer as JaxRenderer
 from project3_cuda_path_tracer_tpu.render import integrator as JI
 from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
 from project3_cuda_path_tracer_tpu_torch.app import cli
-from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
 from project3_cuda_path_tracer_tpu_torch.utils.device import resolve_device
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from test_torch_megakernel import assert_lane_contract
 
 torch.set_num_threads(2)
@@ -78,10 +78,10 @@ def test_pseudo_random_render_mean_matches_jax():
 
 def test_renderer_counts_no_launches_on_cpu():
     ps = _sized(load_scene, "sphere", 8, 2)
-    before = mk.LAUNCHES
+    before = launch_counts()
     r = Renderer(ps, device="cpu")
     r.step_many(3)
-    assert r.iteration == 3 and mk.LAUNCHES == before
+    assert r.iteration == 3 and launch_counts() == before
     img = r.image()
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
 
@@ -122,7 +122,8 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for want in ('models.inverse', 'models.optim', 'tools.exp_gather',\n"
-        "             'tools.exp_extract_cost', 'ops.nee', 'ops.texfetch'):\n"
+        "             'tools.exp_extract_cost', 'ops.nee', 'ops.texfetch',\n"
+        "             'utils.launches'):\n"
         "    assert p.__name__ + '.' + want in names, want\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax') or m.startswith(\n"

@@ -8,8 +8,8 @@ and `render_chunk` record the render spans, `make_train_scan`'s calls the
 train spans (the graph's replay through a stand-in for the capture);
 `render_chunk` with spans on makes no host round trip; `image()` is the
 host mean bit for bit (on a card too); a textured scene's
-decode and upload record `scene.textures` and `render.textures` and set
-the counters `texfetch.table_bytes` and `render.p1_launches`. On a card
+decode and upload record `scene.textures` and `render.textures`, and its
+captured iteration counts its P1 launches. On a card
 (`cuda`-marked, skip here): a span around a synchronised kernel contains
 the kernel's profiler interval, and a captured graph's `kernel_nodes`
 equals the kernels its replay records. The file imports neither JAX nor
@@ -238,13 +238,13 @@ def _capturing_stand_in(fn, device, name="graph", counters=None,
 def _counted_gather_plain(monkeypatch):
     """P1's plain version counted as the kernel's wrapper counts a launch
     (the CPU launches none)."""
-    from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
-    plain = exp_gather.gather_plain
+    from project3_cuda_path_tracer_tpu_torch.utils.launches import count
+    plain = texfetch.gather_plain
 
     def counted(table, idx):
-        exp_gather.LAUNCHES += 1
+        count("p1")
         return plain(table, idx)
-    monkeypatch.setattr(exp_gather, "gather_plain", counted)
+    monkeypatch.setattr(texfetch, "gather_plain", counted)
 
 
 _TEXTURED = """ENVMAP {assets}/sky.hdr
@@ -287,11 +287,10 @@ SCALE 2.2 2.2 2.2
 def test_texture_spans_and_counters(monkeypatch, tmp_path, textured):
     """A scene with a TEXTURE and an ENVMAP records `scene.textures` (the
     decode in load_scene) and `render.textures` (the upload and fusion in
-    the Renderer) once each, and sets `texfetch.table_bytes` (the fused
-    atlas+env table: 512x512 + 512x256 texels of 4 bytes) and, at the
-    capture, `render.p1_launches` (the graph's P1 launches: one fused take
-    a bounce; P1's plain version stands in for the kernel). An untextured
-    scene (cornell) sets neither counter."""
+    the Renderer) once each, and its capture holds the graph's P1
+    launches (one fused take of the 512x512 + 512x256 atlas+env table a
+    bounce; P1's plain version stands in for the kernel). An untextured
+    scene (cornell) holds none."""
     monkeypatch.setattr(I, "capture_graph", _capturing_stand_in)
     _counted_gather_plain(monkeypatch)
     if textured:
@@ -309,16 +308,14 @@ def test_texture_spans_and_counters(monkeypatch, tmp_path, textured):
     I.render_chunk(r, 1)
     I.render_chunk(r, 2)
     assert r.graph.replays == 2
-    totals, counters = profiling.span_totals(), profiling.counters()
+    totals = profiling.span_totals()
     assert totals["render.textures"][0] == 1
     if textured:
         assert totals["scene.textures"][0] == 1
-        assert counters["texfetch.table_bytes"] == (512 * 512
-                                                    + 512 * 256) * 4
-        assert counters["render.p1_launches"] == 3 == r.graph.launches["p1"]
+        assert r.tables[3].fused_packed.numel() == 512 * 512 + 512 * 256
+        assert r.graph.launches["p1"] == 3
     else:
-        assert "texfetch.table_bytes" not in counters
-        assert "render.p1_launches" not in counters
+        assert r.graph.launches["p1"] == 0
 
 
 def test_train_scan_records_the_train_spans(monkeypatch):
@@ -489,10 +486,10 @@ def test_kernel_nodes_equal_a_replays_kernels_on_card(case, tmp_path):
 
 
 @pytest.mark.cuda
-def test_p1_launches_counter_is_the_graph_s_on_card(tmp_path):
+def test_graph_holds_one_p1_launch_a_bounce_on_card(tmp_path):
     """On the card the textured scene's captured iteration holds one P1
-    launch a bounce, kept as `render.p1_launches`, and each replay runs
-    them (the kernel's own device tally)."""
+    launch a bounce, and each replay runs them (the kernel's own device
+    tally)."""
     _need_card()
     from project3_cuda_path_tracer_tpu_torch.utils import launches as L
     path = tmp_path / "textured.txt"
@@ -503,7 +500,6 @@ def test_p1_launches_counter_is_the_graph_s_on_card(tmp_path):
     r.step_many(1)
     r.step_many(2)
     assert r.graph is not None and r.graph.launches["p1"] == 3
-    assert profiling.counters()["render.p1_launches"] == 3
     L.zero_launch_counts()
     r.step_many(2)
     assert L.device_launches()["p1"] == 2 * 3

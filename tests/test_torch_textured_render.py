@@ -24,8 +24,7 @@ import torch
 from project3_cuda_path_tracer_tpu import load_scene as jax_load_scene
 from project3_cuda_path_tracer_tpu.render import integrator as JI
 from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
-from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from test_torch_megakernel import assert_lane_contract
 from test_torch_textures import bump_scene_path
 
@@ -77,10 +76,10 @@ def test_textured_env_iteration_matches_jax(mode, loaded):
     flags = dict(bilinear=mode != "nearest",
                  bilinear_fast=mode == "bilinear_fast")
     js, ps = (sized(s, **flags) for s in loaded["textured_env"])
-    k2 = P8.LAUNCHES
+    before = launch_counts()
     got, want = both_images(js, ps)
     assert_lane_contract(got, want)
-    assert P8.LAUNCHES == k2 and exp_gather.LAUNCHES == 0  # CPU: plain
+    assert launch_counts() == before and before["p1"] == 0  # CPU: plain
     if mode == "bilinear_fast":
         assert ps.textures.atlas_pair.shape[0] == 512 * 512
         assert ps.textures.env_pair.shape[0] == 512 * 256

@@ -16,7 +16,7 @@ and its port counterpart. Tolerances:
     spheres and the torus, and shade_planar with injected uniforms in each
     fetch branch, with the bump and with the normal map.
 The texel fetches here run on CPU tensors, so ops/texfetch.take_u32 takes
-P1's plain version (tools/exp_gather.gather_plain); the card's kernel is
+P1's plain version (ops/texfetch.gather_plain); the card's kernel is
 held against it in tests/test_torch_cuda.py and chip_smoke.py.
 Whole iterations are in tests/test_torch_textured_render.py.
 """
@@ -41,7 +41,7 @@ from project3_cuda_path_tracer_tpu_torch.render import integrator as PI
 from project3_cuda_path_tracer_tpu_torch.scene import parser as pparser
 from project3_cuda_path_tracer_tpu_torch.scene.convert import \
     textures_from_numpy
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather
+from project3_cuda_path_tracer_tpu_torch.utils.launches import launch_counts
 from project3_cuda_path_tracer_tpu_torch.utils import image as pimg
 from test_torch_megakernel import assert_lane_contract
 
@@ -370,11 +370,11 @@ def test_take_u32_routes_through_p1():
     table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, 1000,
                                           dtype=np.int64).astype(np.int32))
     idx = torch.from_numpy(rng.integers(0, 1000, 257).astype(np.int32))
-    before = exp_gather.LAUNCHES
+    before = launch_counts()
     got = texfetch.take_u32(table, idx)
-    assert exp_gather.LAUNCHES == before
+    assert launch_counts() == before
     assert torch.equal(got, table[idx.long()])
-    assert torch.equal(got, exp_gather.gather_plain(table, idx))
+    assert torch.equal(got, texfetch.gather_plain(table, idx))
     f = torch.from_numpy(rng.random(1000, dtype=np.float32))
     assert torch.equal(texfetch.take_f32(f, idx), f[idx.long()])
     with pytest.raises(TypeError):

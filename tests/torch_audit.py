@@ -20,7 +20,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from project3_cuda_path_tracer_tpu_torch.ops import bvh8 as P8
 from project3_cuda_path_tracer_tpu_torch.ops import matgrad as MG
 from project3_cuda_path_tracer_tpu_torch.ops import pallas_bvh as PPB
-from project3_cuda_path_tracer_tpu_torch.tools import exp_gather as P1
+from project3_cuda_path_tracer_tpu_torch.ops import texfetch as P1
 
 # the plain versions that the card's kernels replace
 PLAIN_KERNELS = ((P8, "traverse8_plain"), (PPB, "traverse_binary_plain"),
