@@ -117,7 +117,7 @@ once) and drives these paths:
     step_many(n) from the same start, bit for bit (accumulation,
     reservoir, adaptive sums and counts), then ms an iteration of both
     forms in turns, the kernels and device busy share of a replay (an
-    eager step's are the earlier paths'), K2/K3/P1/I1 launches a replay (the
+    eager step's are the earlier paths'), K2/K3/P1/I1/S1 launches a replay (the
     capture's count, held against the kernels' device tallies over the
     chunk and over one replay, beside the replay's kernels by name in
     torch.profiler's records), capture and instantiate seconds and the
@@ -130,6 +130,14 @@ once) and drives these paths:
     and cold beside its bytes bound and the plain chain, and its launches
     over four iterations of each (one eager, then the captured graph's
     replays), read from its device tally;
+  - S1, the no-grad shading step (csrc/shade.cu via ops/shade.py), on the
+    bounce-0 and bounce-1 wavefronts of the three render cells (mesh.txt
+    1024x1024, cornell 800x800 with NEE, textured_env 2048x2048 through
+    the fused texel: its index entry point, P1, its shade entry point):
+    bit for bit against the torch chain on the card on every output plane
+    and the fused index, timed held and cold beside its bytes bound and the
+    chain, and its launches over four iterations of each (one eager, then
+    the captured graph's replays), read from its device tally;
   - the probes' entry points (tools/exp_gather.py, P1, csrc/gather.cu, and
     tools/exp_extract_cost.py, P2, csrc/extract_cost.cu), each kernel held
     bit for bit against its plain version first: every P1 instance that
@@ -440,8 +448,7 @@ def mesh_wavefronts(r):
         hit, d, V3(one, one, one), torch.ones_like(one, dtype=torch.bool),
         materials, textures, wf.stratified_planes(0, 0, pix, 4,
                                                   wf.SALT_BOUNCE),
-        last_bounce=torch.zeros_like(one, dtype=torch.bool),
-        glossy=cfg.glossy)
+        last_bounce=False, glossy=cfg.glossy)
     bounce1 = wf.mesh_query(out.origin, out.direction, times, geoms,
                             MESH_GEOM, alive=out.alive)
     return bounce0, bounce1
@@ -934,8 +941,9 @@ def mesh_phases(outdir: str, gpu: str):
 def mesh_nee(scene, gpu: str) -> dict:
     """mesh.txt 1024x1024 depth 8 with --nee (stratified) through
     `Renderer`: one iteration with the counts set to 0 just before it,
-    whose K2 any-hit launches (the shadow rays; one a bounce but the last)
-    are captured by wrapping bvh8.traverse8; K2 any-hit held bit for bit
+    which must launch S1 once a bounce, and whose K2 any-hit launches (the
+    shadow rays; one a bounce but the last) are captured by wrapping
+    bvh8.traverse8; K2 any-hit held bit for bit
     against traverse8_plain(any_hit=True) on the bounce-0 and bounce-1
     shadow wavefronts, timed with the stream held, and its bound from the
     tree rows those walks read; the iteration's ms and kernels. Returns
@@ -968,16 +976,17 @@ def mesh_nee(scene, gpu: str) -> dict:
     torch.cuda.synchronize()
     depth = r.cfg.trace_depth
     counts = {k: v for k, v in read_counts().items()
-              if k in ("k1", "k2", "k2_any_hit", "k2_other", "k3_k4")}
+              if k in ("k1", "k2", "k2_any_hit", "k2_other", "k3_k4",
+                       "shade")}
     log(json.dumps(dict(phase="mesh nee path", scene="scenes/mesh.txt",
                         flags="--nee --stratified", depth=depth,
                         iterations=1, **counts)))
     if (counts["k2_any_hit"] != depth - 1 or counts["k2"] != 2 * depth - 1
-            or len(shadows) != depth - 1
+            or len(shadows) != depth - 1 or counts["shade"] != depth
             or any(counts[k] for k in ("k1", "k2_other", "k3_k4"))):
         raise AssertionError(f"mesh --nee launches {counts} (want {depth} "
                              f"nearest and {depth - 1} any-hit K2 launches,"
-                             " nothing else)")
+                             f" {depth} of S1, no K1, K3 or K4)")
     img = r.accum.cpu().numpy()
     if not np.isfinite(img).all() or (img < 0).any() or img.mean() <= 0:
         raise AssertionError("mesh --nee image is not finite and > 0")
@@ -1288,7 +1297,9 @@ KERNEL_NAMES = {"k1": r"(?<!\w)megakernel(?!\w)",
                 "k2_any_hit": r"(?<!\w)traverse8_kernel<\d+, true",
                 "k3_k4": r"(?<!\w)binary_kernel(?!\w)",
                 "p1": r"(?<!\w)gather_kernel(?!\w)",
-                "prim": r"(?<!\w)prim_hit_kernel(?!\w)"}
+                "prim": r"(?<!\w)prim_hit_kernel(?!\w)",
+                "shade": r"(?<!\w)shade_kernel(?!\w)",
+                "shade_index": r"(?<!\w)shade_index_kernel(?!\w)"}
 
 
 def named_launches(prof) -> dict:
@@ -1304,8 +1315,8 @@ def named_launches(prof) -> dict:
 
 def measured_launches(fn) -> dict:
     """Run `fn()` with every count set to 0 just before it, and return the
-    launches that ran on the card: K2's, K3/K4's, P1's and I1's from the tallies
-    the kernels themselves keep in device memory
+    launches that ran on the card: K2's, K3/K4's, P1's, I1's and S1's from
+    the tallies the kernels themselves keep in device memory
     (`utils.launches.device_launches`), K1's from its wrapper (its route
     never replays a graph); under "wrappers", the wrappers' counts over
     the same run. Where `fn` replays a captured graph the two differ: a
@@ -1344,7 +1355,9 @@ def textured_path(name: str, outdir: str, gpu: str) -> dict:
     """scenes/<name>.txt at its own 2048x2048 depth 8 through `Renderer`:
     one iteration with every count set to 0 just before it, which must take
     the wavefront route with one K2 launch a bounce, no other traversal and
-    no K1, and P1 launches on textured_env (none on the procedural twin);
+    no K1, and P1 launches and S1's shade and index entries once a bounce
+    on textured_env (none on the procedural twin, whose sky keeps the
+    chain);
     the fused-table indices and the K2 rays of that iteration are
     captured; ms per iteration (CUDA events, two runs of 4 after the
     warm-up), the profiler's kernels and device busy share, and an 8-spp
@@ -1376,7 +1389,9 @@ def textured_path(name: str, outdir: str, gpu: str) -> dict:
                                        "k3_k4", "p1_ab"))
             or counts["p1"] != len(fetches)
             or (counts["p1"] > 0) != textured
-            or (textured and fused_fetches != depth)):
+            or (textured and fused_fetches != depth)
+            or counts["shade"] != (depth if textured else 0)
+            or counts["shade_index"] != (depth if textured else 0)):
         raise AssertionError(f"{name} path: {rec}")
     runs = [time_ms(r.step, 4, warm=1), time_ms(r.step, 4, warm=0)]
     prof = profile_one(r.step)
@@ -2389,6 +2404,186 @@ def i1_phase(mesh_scene, gpu: str) -> dict:
                 launches_per_iteration=per_replay)
 
 
+def s1_entry(s1: dict) -> dict:
+    """S1's entry of the `kernels` line: mesh.txt's bounce-0 record of
+    `s1_phase` and the launches that ran on the card over each render
+    cell's chunk of S1_ITERS iterations (the capture's replays)."""
+    rec = s1["records"][0]
+    return {"name": "shade", "route": "cuda",
+            "source": f"{PKG}/csrc/shade.cu", "replaces": None,
+            "launches": sum(s1["launches"].values()),
+            "launches_by_path": s1["launches"],
+            "launches_per_iteration": s1["launches_per_iteration"],
+            "path": "mesh.txt 1024x1024 d8, bounce 0",
+            **{k: rec[k] for k in ("value", "cold_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "share_of_bound",
+                                   "bitwise")},
+            "library_ms": None}
+
+
+# the iterations of each render cell's chunk in `s1_phase`: the first
+# eager (the traced one), then the capture and a replay each
+S1_ITERS = 4
+
+
+def plane_bytes(planes: dict) -> int:
+    """Bytes of the [N] planes read once each (a broadcast plane once)."""
+    return sum(t.element_size() * (1 if t.stride(0) == 0 else t.shape[0])
+               for t in planes.values())
+
+
+def s1_phase(mesh_scene, gpu: str) -> dict:
+    """S1 (csrc/shade.cu), the no-grad shading step, on the render cells'
+    wavefronts: mesh.txt 1024x1024, cornell 800x800 with NEE, textured_env
+    2048x2048 (the fused texel: the index entry point, P1, the shade entry
+    point), bounces 0 and 1 each, traced by the first (eager) iteration of
+    a Renderer's step_many(S1_ITERS), whose launches `measured_launches`
+    reads from the device tally: S1's shade entry must run 8 times an
+    iteration in every cell, its index entry 8 times on textured_env, in
+    the eager iteration and in each replay of the captured graph, which
+    holds as many. Each step: the kernel bit for bit against the chain
+    (`wavefront.shade_plain`) on the card on every output plane, and the
+    index against the chain's; held time (stream held, 20 calls) and cold
+    (each call after a 128 MB write) of S1's launches (on textured_env the
+    index and shade entries, P1 apart, and the whole step with P1); the
+    bytes bound (each plane S1 reads and writes once; the exact-point
+    planes, which only a transmitted ray reads, only where a material
+    refracts); the chain's time.
+    Returns the records and the launches."""
+    from project3_cuda_path_tracer_tpu_torch import Renderer, load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import primhit as I1
+    from project3_cuda_path_tracer_tpu_torch.ops import shade as S1
+    from project3_cuda_path_tracer_tpu_torch.ops import texfetch
+    from project3_cuda_path_tracer_tpu_torch.ops import wavefront as wf
+    from project3_cuda_path_tracer_tpu_torch.utils.device import (
+        time_cold_ms, time_ms as held_ms)
+    t_start = time.perf_counter()
+    mesh = copy.deepcopy(mesh_scene)
+    cornell = sized(SCENE, 800, 8)
+    cornell.settings.nee = True
+    textured = load_scene(TEXTURED)
+    recs, ran_by_cell, per_replay = [], {}, {}
+    for cell, scene in (("mesh", mesh), ("cornell_nee", cornell),
+                        ("textured_env", textured)):
+        scene.settings.stratified = True
+        r = Renderer(scene, device="cuda")
+        if r.route != "wavefront":
+            raise AssertionError(f"{cell} takes the {r.route} route")
+        calls, real = [], wf.shade_planar
+
+        def spy(*args, **kw):
+            if len(calls) < 2:
+                calls.append((args, kw))
+            return real(*args, **kw)
+
+        def chunk():
+            wf.shade_planar = spy   # on the first iteration, eager
+            try:
+                r.step_many(1)
+            finally:
+                wf.shade_planar = real
+            r.step_many(S1_ITERS - 1)   # the capture, then its replays
+        ran = measured_launches(chunk)
+        if r.graph is None or r.graph.replays != S1_ITERS - 1:
+            raise AssertionError(f"S1 {cell}: the chunk replayed no graph")
+        tex = cell == "textured_env"
+        want = {"shade": 8, "shade_index": 8 if tex else 0}
+        ran_by_cell[cell] = {k: ran[k] for k in want}
+        per_replay[cell] = {k: r.graph.launches[k] for k in want}
+        if (ran_by_cell[cell] != {k: S1_ITERS * v for k, v in want.items()}
+                or per_replay[cell] != want):
+            raise AssertionError(
+                f"S1 {cell}: {ran_by_cell[cell]} launches over {S1_ITERS} "
+                f"iterations, {per_replay[cell]} a replay, not {want} an "
+                f"iteration ({ran['wrappers']})")
+        for bounce, (args, kw) in enumerate(calls):
+            hit, ray_d, thr, alive, mats, tx, uni = args[:7]
+            nee, last = kw.get("nee"), kw["last_bounce"]
+            area = kw.get("nee_area", 0.0)
+            texel = None
+            with torch.no_grad():
+                if tex:
+                    idx = S1.fused_index(hit, ray_d, mats, tx)
+                    texel = texfetch.take_u32(tx.fused_packed, idx)
+                    aflat, _ = wf._atlas_flat_index(tx, hit.mat_id, hit.u,
+                                                    hit.v)
+                    na = tx.atlas.shape[0] * tx.atlas.shape[1]
+                    chain_idx = torch.where(
+                        hit.t <= 0.0, wf._env_flat_index(tx, ray_d) + na,
+                        aflat)
+                    index_bad = int((idx != chain_idx).sum())
+
+                def kernel():
+                    return S1.shade(hit, ray_d, thr, alive, mats, tx, uni,
+                                    last, nee, area, texel=texel)
+
+                def whole():
+                    return S1.shade(hit, ray_d, thr, alive, mats, tx, uni,
+                                    last, nee, area)
+
+                def index():
+                    return S1.fused_index(hit, ray_d, mats, tx)
+
+                def plain():
+                    return wf.shade_plain(*args, **kw)
+                got, want_out = whole(), plain()
+                torch.cuda.synchronize()
+                bad = I1.differing_lanes(got, want_out)
+                held = [held_ms(kernel, 20, warm=3) for _ in range(2)]
+                cold = time_cold_ms(kernel, 5)
+                extra = {}
+                if tex:
+                    ih = [held_ms(index, 20, warm=3) for _ in range(2)]
+                    ic = time_cold_ms(index, 5)
+                    held = [a + b for a, b in zip(held, ih)]
+                    cold = [a + b for a, b in zip(cold, ic)]
+                    extra = dict(
+                        index_ms=float(np.mean(ih)),
+                        index_cold_ms=float(np.median(ic)),
+                        index_bitwise=index_bad == 0,
+                        index_differing_lanes=index_bad,
+                        step_with_p1_ms=held_ms(whole, 20, warm=3))
+                plain_ms = held_ms(plain, 3, warm=1)
+            n = hit.t.shape[0]
+            planes = S1.shade_planes(hit, ray_d, thr, alive, uni, nee,
+                                     texel)
+            if not bool((mats.has_refractive > 0).any()):
+                # only a transmitted ray starts from the exact point
+                for k in ("sx", "sy", "sz"):
+                    del planes[k]
+            read = plane_bytes(planes)
+            written = n * (4 * (13 if nee is not None else 12) + 1)
+            if tex:
+                read += plane_bytes(S1.index_planes(hit, ray_d))
+                written += 4 * n
+            rec = dict(metric="S1_shade_ms", cell=cell,
+                       step=f"bounce {bounce}", lanes=n,
+                       alive_share=float(alive.float().mean()),
+                       value=float(np.mean(held)), held_runs=held,
+                       cold_ms=float(np.median(cold)), cold_runs=cold,
+                       plain_ms=plain_ms, bitwise=not bad,
+                       differing_lanes=bad, bytes_read=read,
+                       bytes_written=written, **extra,
+                       **bound(read + written, 0), gpu=gpu)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["value"]
+            rec["cold_share_of_bound"] = rec["bound_ms"] / rec["cold_ms"]
+            log(json.dumps(rec))
+            recs.append(rec)
+            if bad or extra.get("index_differing_lanes"):
+                raise AssertionError(
+                    f"S1 {cell} bounce {bounce}: {bad}, index "
+                    f"{extra.get('index_differing_lanes')}")
+        del r, calls
+    out = dict(metric="S1_summary", iterations=S1_ITERS,
+               launches=ran_by_cell, launches_per_replay=per_replay,
+               seconds=time.perf_counter() - t_start, gpu=gpu)
+    log(json.dumps(out))
+    return dict(records=recs,
+                launches={c: v["shade"] + v["shade_index"]
+                          for c, v in ran_by_cell.items()},
+                launches_per_iteration=per_replay)
+
+
 # ---------------------------------------------------------------------------
 # The train step as one captured graph (slice J)
 # ---------------------------------------------------------------------------
@@ -3125,7 +3320,7 @@ def k2_compacted(gpu: str, p8, sorted_waves: list, plain_waves: list,
 def mesh_integrator(scene, gpu: str):
     """mesh.txt at 1024x1024 depth 8 under slice E's knobs: the --stratified
     --sort --compact path (one iteration with every count set to 0 just
-    before it: 8 K2 and 8 I1 launches, nothing else), its image after 2
+    before it: 8 K2, 8 I1 and 8 S1 launches, nothing else), its image after 2
     iterations bit for bit the identity order's, K2 on its compacted bounce-1
     wavefront (`k2_compacted`), ms an iteration for sort+compact, Russian
     roulette and plain in turns, and the first-bounce cache (no AA, 4
@@ -3149,7 +3344,9 @@ def mesh_integrator(scene, gpu: str):
     log(json.dumps(rec))
     if (srt.route != "wavefront" or counts["k2"] != srt.cfg.trace_depth
             or counts["prim"] != srt.cfg.trace_depth
-            or any(v for k, v in counts.items() if k not in ("k2", "prim"))):
+            or counts["shade"] != srt.cfg.trace_depth
+            or any(v for k, v in counts.items()
+                   if k not in ("k2", "prim", "shade"))):
         raise AssertionError(f"mesh sort+compact path: {rec}")
     with capturing(P8, "traverse8", every, limit=8) as plain_waves:
         plain.step()
@@ -3443,9 +3640,11 @@ def adaptive_cornell(outdir: str, gpu: str, truth: torch.Tensor) -> dict:
                replan_host_ms=replans, gpu=gpu)
     log(json.dumps(rec))
     if (ra.route != "wavefront"
-            or any(v for k, v in counts.items() if k != "prim")
+            or any(v for k, v in counts.items() if k not in ("prim", "shade"))
             or counts["prim"] != spp * ra.cfg.trace_depth
-            or any(v for k, v in ran["wrappers"].items() if k != "prim")
+            or counts["shade"] != spp * ra.cfg.trace_depth
+            or any(v for k, v in ran["wrappers"].items()
+                   if k not in ("prim", "shade"))
             or cnt.sum() != spp * npix or not cnt.std() > 0
             or len(replans) != 3):
         raise AssertionError(f"cornell adaptive path: {rec}")
@@ -3526,8 +3725,9 @@ def adaptive_mesh(mesh_scene, gpu: str) -> dict:
                count_sum=float(ra.count.astype(np.float64).sum()), gpu=gpu)
     log(json.dumps(rec))
     if (ra.route != "wavefront" or counts["k2"] != depth
-            or counts["prim"] != depth
-            or any(v for k, v in counts.items() if k not in ("k2", "prim"))
+            or counts["prim"] != depth or counts["shade"] != depth
+            or any(v for k, v in counts.items()
+                   if k not in ("k2", "prim", "shade"))
             or len(replans) != 1 or int(cimg.max()) < 2
             or not bool((pix[1:] >= pix[:-1]).all())
             or rec["count_sum"] != 9 * npix):
@@ -3981,8 +4181,8 @@ def shard_train_grads(scene, sharding, PInv):
 def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     """Slice G on the card: mesh.txt 1024x1024 depth 8 through
     ShardedRenderer in a world of one over NCCL, against the single-process
-    Renderer (the same wavefront route) to 1e-5, its K2 launches counted,
-    ms an iteration in turns with the single process; the sharded history
+    Renderer (the same wavefront route) to 1e-5, its K2, I1 and S1
+    launches counted (one each a bounce), ms an iteration in turns with the single process; the sharded history
     loss's gradients at world one against the single process; then two
     ranks on the one card over gloo with CUDA tensors (two processes of
     this script, `--shard-worker`), their gathered cornell image and
@@ -4024,6 +4224,7 @@ def sharding_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     log(json.dumps(rec))
     if (gap > 1e-5 or counts["k2"] != 8 * SHARD_ITERS or counts["k1"]
             or counts["prim"] != 8 * SHARD_ITERS
+            or counts["shade"] != 8 * SHARD_ITERS
             or not ran["wrappers"]["k2"] or grad_err > 1e-4
             or abs(float(loss) - float(want_loss)) > 1e-5 * abs(
                 float(want_loss))):
@@ -4171,11 +4372,13 @@ def preview_phase(outdir: str, gpu: str) -> dict:
 
 
 # the counts of KERNEL_NAMES a chunk's graph may hold
-CHUNK_KERNELS = ("k2", "k2_any_hit", "k3_k4", "p1", "prim")
+CHUNK_KERNELS = ("k2", "k2_any_hit", "k3_k4", "p1", "prim", "shade",
+                 "shade_index")
 
 
 def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
-                  gpu: str, config: str, k: int = 3, **extra) -> dict:
+                  gpu: str, config: str, s1: tuple, k: int = 3,
+                  **extra) -> dict:
     """After `eager` took n step() calls and `chunk` n iterations, the last
     `window` of them one run of step_many measured by `measured_launches`
     (`ran`): the states bit for bit (`same_state`); ms an iteration of both
@@ -4185,10 +4388,11 @@ def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
     replay's kernels by name, printed: the profiler loses a few records of
     a run now and then, so it counts no launch that is checked); the
     graph's launches a replay, capture and instantiate seconds and pool
-    bytes. Raises unless the states are equal and the kernels' device
-    tallies show each kernel of CHUNK_KERNELS launched `window` times the
-    graph's launches a replay over the measured run and once that over
-    the profiled replay."""
+    bytes. Raises unless the states are equal, the graph holds `s1`
+    launches of S1 a replay (its shade entry, its index entry), and the
+    kernels' device tallies show each kernel of CHUNK_KERNELS launched
+    `window` times the graph's launches a replay over the measured run and
+    once that over the profiled replay."""
     from project3_cuda_path_tracer_tpu_torch.render.integrator import \
         same_state
     from project3_cuda_path_tracer_tpu_torch.utils.launches import \
@@ -4230,6 +4434,10 @@ def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
     if not equal:
         raise AssertionError(f"chunk {tag}: the replayed state differs from "
                              "the eager loop's")
+    if (per["shade"], per["shade_index"]) != s1:
+        raise AssertionError(f"chunk {tag}: S1 {per['shade']} + "
+                             f"{per['shade_index']} launches a replay, not "
+                             f"{s1[0]} + {s1[1]}")
     if replay_launches != per:
         raise AssertionError(f"chunk {tag}: a replay launched "
                              f"{replay_launches}, the capture counted {per}")
@@ -4240,7 +4448,7 @@ def chunk_measure(tag: str, eager, chunk, n: int, ran: dict, window: int,
 
 
 def chunk_config(tag: str, make, n: int, gpu: str, config: str,
-                 k: int = 3, **extra) -> dict:
+                 s1: tuple = (8, 0), k: int = 3, **extra) -> dict:
     """Two Renderers from `make()`: n eager step() calls on one, step_many(n)
     on the other measured by `measured_launches` (`chunk_measure`)."""
     eager, chunk = make(), make()
@@ -4250,7 +4458,7 @@ def chunk_config(tag: str, make, n: int, gpu: str, config: str,
     ran = measured_launches(lambda: chunk.step_many(n))
     for _ in range(n):
         eager.step()
-    return chunk_measure(tag, eager, chunk, n, ran, n, gpu, config, k,
+    return chunk_measure(tag, eager, chunk, n, ran, n, gpu, config, s1, k,
                          **extra)
 
 
@@ -4283,7 +4491,7 @@ def chunk_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     textured = load_scene(TEXTURED)
     recs["textured_env"] = chunk_config(
         "textured_env", lambda: Renderer(textured, device="cuda"), 3, gpu,
-        "textured_env.txt 2048x2048 depth 8")
+        "textured_env.txt 2048x2048 depth 8", s1=(8, 8))
     recs["cornell_nee"] = chunk_config(
         "cornell_nee", lambda: Renderer(nee_scene(SCENE, 800, 8, nee=True),
                                         device="cuda", route="wavefront"),
@@ -4291,11 +4499,11 @@ def chunk_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     recs["manylights_restir"] = chunk_config(
         "manylights_restir", lambda: Renderer(
             nee_scene(MANY, 800, 5, seed=3, restir=8), device="cuda"), 4,
-        gpu, "manylights.txt 800x800 depth 5 --restir 8")
+        gpu, "manylights.txt 800x800 depth 5 --restir 8", s1=(0, 0))
     sdf = load_scene(os.path.join(ROOT, "scenes", "sdf.txt"))
     recs["sdf"] = chunk_config(
         "sdf", lambda: Renderer(sdf, device="cuda"), 3, gpu,
-        "sdf.txt 800x800 depth 8", k=2)
+        "sdf.txt 800x800 depth 8", s1=(0, 0), k=2)
     # two replans (iterations 8 and 16) inside the chunk; the timed runs
     # cross the one at 24 in both forms
     made = []  # (renderer, its replans' host ms): the eager one, the chunk
@@ -4363,7 +4571,7 @@ def chunk_phases(mesh_scene, outdir: str, gpu: str) -> dict:
     recs["preview_orbit"] = chunk_measure(
         "preview_orbit", fresh, r, r.iteration, ran, 4, gpu,
         "cornell.txt 800x800 depth 8 on the wavefront route, through the "
-        "preview after POST /orbit", orbit_ms=orbit_ms, frame_ms=frame_ms,
+        "preview after POST /orbit", (8, 0), orbit_ms=orbit_ms, frame_ms=frame_ms,
         orbit_during_loop=orbit_during_loop)
     out = {key: sum(v["launches"][key] for v in recs.values())
            for key in CHUNK_KERNELS}
@@ -4434,7 +4642,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["megakernel", "bvh8", "bvh_binary",
                                  "gather", "extract_cost", "mat_grad",
-                                 "prim_hit"])
+                                 "prim_hit", "shade"])
     log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
                         libraries={k: os.path.relpath(v, ROOT)
                                    for k, v in libs.items()})))
@@ -4580,6 +4788,8 @@ def main() -> int:
     mark("g1")
     i1 = i1_phase(mesh_scene, gpu)
     mark("i1")
+    s1 = s1_phase(mesh_scene, gpu)
+    mark("s1")
     train_graph = train_graph_phases(gpu, r.accum / r.iteration)
     mark("train_graph")
 
@@ -4672,7 +4882,8 @@ def main() -> int:
             "preview after an orbit": app["preview"]["k1_launches"]},
         "max_abs_err": main_cmp["max_abs_err"],
         "library_ms": None, **k1}] + mesh + probes
-        + [g1_entry(g1, train_graph), i1_entry(i1)]}), flush=True)
+        + [g1_entry(g1, train_graph), i1_entry(i1), s1_entry(s1)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

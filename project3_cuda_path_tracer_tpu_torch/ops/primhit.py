@@ -190,9 +190,10 @@ def _nearest_kernel(o: V3, d: V3, times: torch.Tensor, geoms: T.Geoms,
 
 
 def differing_lanes(got, want) -> dict:
-    """The lanes whose bits differ between two hit records, by field (`normal.x`
-    and so on; a float compared by its bit pattern, so -0.0 against 0.0 and
-    NaN payloads count), for the fields that differ at all."""
+    """The lanes whose bits differ between two records of [N] planes (hit
+    records, or ops/shade's ShadeOutP), by field (`normal.x` and so on; a
+    float compared by its bit pattern, so -0.0 against 0.0 and NaN payloads
+    count), for the fields that differ at all."""
     def planes(hit):
         out = {}
         for k in hit._fields:

@@ -37,6 +37,7 @@ from . import pallas_bvh as PB
 from . import primhit
 from . import qmc
 from . import sdf as S
+from . import shade
 from . import texfetch
 from . import vec
 from .vec import V3
@@ -1273,7 +1274,7 @@ def _normal_map(hit: HitP, n_sh: V3, textures: T.Textures, mat_id) -> V3:
 def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                  materials: T.Materials, textures: T.Textures,
                  uniforms: Sequence[torch.Tensor],
-                 last_bounce: torch.Tensor, glossy: bool = True,
+                 last_bounce, glossy: bool = True,
                  nee: Optional[tuple] = None,
                  nee_area: float = 0.0, sky: bool = False,
                  nee_env_c: float = 0.0, nee_q: float = 1.0,
@@ -1282,7 +1283,13 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
                  bilinear_fast: bool = False,
                  dispersion: bool = False) -> ShadeOutP:
     """One scattering step over the wavefront; `uniforms` holds the four
-    planes (u_lobe, u1, u2, u_fresnel). The JAX `shade_planar`.
+    planes (u_lobe, u1, u2, u_fresnel); `last_bounce` is a bool (off the
+    kernel's route also an [N] bool plane). The JAX `shade_planar`.
+
+    Where `ops.shade.takes` the inputs (CUDA tensors without a gradient,
+    the gates below that the kernel does not implement off), the step is
+    kernel S1 (csrc/shade.cu), bit for bit with the torch chain
+    `shade_plain`, which runs everywhere else.
 
     Albedo: the material colour, its atlas texel where the material is
     textured (nearest; `bilinear` four corners; with `bilinear_fast` the
@@ -1320,6 +1327,33 @@ def shade_planar(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
     lobe) and detached, refracts with ior + d (ch - 1), and its throughput
     keeps 3x that band alone: E[3 onehot(ch) L] = sum of L's bands, so white
     light stays unbiased while caustics split by wavelength."""
+    if shade.takes(hit, ray_d, throughput, alive, materials, textures,
+                   uniforms, nee, glossy, nee_area, sky, nee_env_c, nee_q,
+                   bump, nmap, bilinear, dispersion):
+        return shade.shade(hit, ray_d, throughput, alive, materials,
+                           textures, uniforms, last_bounce, nee, nee_area)
+    return shade_plain(hit, ray_d, throughput, alive, materials, textures,
+                       uniforms, last_bounce, glossy, nee, nee_area, sky,
+                       nee_env_c, nee_q, bump, nmap, bilinear, bilinear_fast,
+                       dispersion)
+
+
+def shade_plain(hit: HitP, ray_d: V3, throughput: V3, alive: torch.Tensor,
+                materials: T.Materials, textures: T.Textures,
+                uniforms: Sequence[torch.Tensor],
+                last_bounce, glossy: bool = True,
+                nee: Optional[tuple] = None,
+                nee_area: float = 0.0, sky: bool = False,
+                nee_env_c: float = 0.0, nee_q: float = 1.0,
+                bump: bool = False, nmap: bool = False,
+                bilinear: bool = False,
+                bilinear_fast: bool = False,
+                dispersion: bool = False) -> ShadeOutP:
+    """`shade_planar` as torch ops, on any device and under autograd: the
+    chain that kernel S1 repeats bit for bit where it runs."""
+    if not torch.is_tensor(last_bounce):
+        last_bounce = torch.full(hit.t.shape, bool(last_bounce),
+                                 dtype=torch.bool, device=hit.t.device)
     mat_id = hit.mat_id
     albedo, env_fused = _textured_albedo(
         hit, ray_d, textures, _mat_select(materials.color, mat_id),

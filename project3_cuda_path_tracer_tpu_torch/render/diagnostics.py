@@ -55,11 +55,10 @@ def live_path_histogram(scene: T.Scene,
                                   tangents=cfg.nmap, sdf_kinds=cfg.sdf_kinds)
         u4 = torch.rand((4 * n,), generator=gen, dtype=torch.float32,
                         device=dev)
-        last = torch.full((n,), depth >= cfg.trace_depth - 1,
-                          dtype=torch.bool, device=dev)
         out = wf.shade_planar(
             hit, d, thr, alive, mats, tex,
-            tuple(u4[i * n:(i + 1) * n] for i in range(4)), last_bounce=last,
+            tuple(u4[i * n:(i + 1) * n] for i in range(4)),
+            last_bounce=depth >= cfg.trace_depth - 1,
             glossy=cfg.glossy, sky=cfg.sky, bump=cfg.bump, nmap=cfg.nmap,
             bilinear=cfg.bilinear, bilinear_fast=cfg.bilinear_fast,
             dispersion=cfg.dispersion)

@@ -670,7 +670,7 @@ def trace_wavefront(materials: T.Materials, cam: dict, geoms: T.Geoms,
             nee_tuple = (wl, vis, le, pdf, prev_pdf)
         out = wf.shade_planar(
             hit, d, thr, alive, materials, textures, uniforms,
-            last_bounce=torch.full((n,), last, dtype=torch.bool, device=dev),
+            last_bounce=last,
             glossy=cfg.glossy, nee=nee_tuple,
             nee_area=cfg.nee_area if nee and cfg.nee_lights else 0.0,
             sky=cfg.sky,
@@ -714,11 +714,8 @@ def _bounce(o: V3, d: V3, times: torch.Tensor, thr: V3,
         differentiable_mesh=cfg.differentiable_mesh,
         sphere_batch=cfg.sphere_batch, tangents=cfg.nmap,
         sdf_kinds=cfg.sdf_kinds)
-    n = alive.shape[0]
     return wf.shade_planar(
-        hit, d, thr, alive, materials, textures, uniforms,
-        last_bounce=torch.full((n,), last, dtype=torch.bool,
-                               device=alive.device),
+        hit, d, thr, alive, materials, textures, uniforms, last_bounce=last,
         glossy=cfg.glossy, sky=cfg.sky, bump=cfg.bump, nmap=cfg.nmap,
         bilinear=cfg.bilinear, bilinear_fast=cfg.bilinear_fast,
         dispersion=cfg.dispersion)

@@ -1,18 +1,18 @@
 """The launch counts of the hand-written kernels, kept in one place: K1
 (`ops/megakernel.py`), K2 (`ops/bvh8.py`), K3 and K4
 (`ops/pallas_bvh.py`), P1 (`ops/texfetch.py`), G1, the material gather's
-backward (`ops/matgrad.py`), and I1, the analytic primitives' nearest hit
-(`ops/primhit.py`).
+backward (`ops/matgrad.py`), I1, the analytic primitives' nearest hit
+(`ops/primhit.py`), and S1, the no-grad shading step (`ops/shade.py`).
 
 Two kinds. Each wrapper calls `count(key)` where it enqueues a launch
 (`launch_counts`). Under a CUDA graph's capture that happens once, without
 the kernel running, and a replay runs the captured launches with no
 wrapper call: a captured graph keeps the counters' increase over its
 capture as its launches a replay (`utils.device.CapturedGraph.launches`).
-And the kernels of the wavefront route (K2, K3/K4, P1, I1) add one to a tally
-in device memory from their first thread, each time they run, eagerly or
-in a replay (`device_launches`), and so does G1 once a call (its pair of
-passes) in the train step's backward."""
+And the kernels of the wavefront route (K2, K3/K4, P1, I1, S1) add one to
+a tally in device memory from their first thread, each time they run,
+eagerly or in a replay (`device_launches`), and so does G1 once a call (its
+pair of passes) in the train step's backward."""
 from __future__ import annotations
 
 from typing import Dict
@@ -21,7 +21,7 @@ import torch
 
 _COUNTS: Dict[str, int] = dict.fromkeys(
     ("k1", "k1_grid", "k2", "k2_any_hit", "k2_other", "k3_k4", "k4", "p1",
-     "p1_ab", "mat_grad", "prim"), 0)
+     "p1_ab", "mat_grad", "prim", "shade", "shade_index"), 0)
 
 
 def count(key: str) -> None:
@@ -37,13 +37,15 @@ def launch_counts() -> Dict[str, int]:
     (K2's grid and tiny-stack instances), `k3_k4` (K3 and K4), `k4` (those
     of `k3_k4` that are K4), `p1` (the texel gather), `p1_ab` (its entry
     for the bitwise checks, `_gather_instance`), `mat_grad` (G1, a call of
-    its two passes), `prim` (I1)."""
+    its two passes), `prim` (I1), `shade` (S1's shading entry point) and
+    `shade_index` (S1's fused-texel index entry point)."""
     return dict(_COUNTS)
 
 
 # the device tallies' slots, each the launches of what `launch_counts`
 # counts under the same key
-TALLY_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad", "prim")
+TALLY_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad", "prim",
+               "shade", "shade_index")
 _TALLIES: Dict[int, torch.Tensor] = {}  # device index -> int64 [slots]
 
 
