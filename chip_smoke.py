@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once) and drives these paths:
   - cornell, 800x800, depth 8, through `Renderer` and the CLI: the
-    megakernel (K1), held against its plain torch version at the path's
-    shapes; its two schedules (persistent warps refilling dead lanes, the
+    megakernel (K1), held bit for bit against its plain torch version at
+    the path's shapes (and cornell_glass's, 800x800 depth 8, whose glass
+    sphere takes the refractive lobe); its two schedules (persistent warps refilling dead lanes, the
     renderer's; one thread per pixel, `grid`) held equal bit for bit and
     timed in turns, with each schedule's busy lane share, each instance's
     registers and spills, and its shared-memory loads in the SASS;
@@ -191,27 +192,19 @@ TEXTURED = os.path.join(ROOT, "scenes", "textured_env.txt")
 TEXTURED_PROC = os.path.join(ROOT, "scenes", "textured_env_proc.txt")
 MESH_GEOM = 3  # the blob's geom index in scenes/mesh.txt
 
-# Lane contract of tests/test_megakernel.py: kernel and plain version are
-# separately compiled programs. nvcc contracts multiply-adds into FMAs and
-# its rsqrtf differs from torch's rsqrt by ulps; near a decision threshold
+# Lane contract of tests/test_megakernel.py, for two separately compiled
+# computations of one path (the card against the CPU, a traversal kernel
+# against its plain version): an ulp near a decision threshold
 # (nearest-hit ties, the SQRT_OF_ONE_THIRD frame pick, the Fresnel test)
-# such an ulp flips a binary choice and the whole lane diverges. So: lanes
-# agree to ATOL, at most FRAC of them diverge, image means within MEAN_TOL.
+# flips a binary choice and the whole lane diverges. So: lanes agree to
+# ATOL, at most FRAC of them diverge, image means within MEAN_TOL. K1
+# rounds as its plain version does, op for op, and is held to it bit for
+# bit (`kernel_vs_plain`).
 ATOL, FRAC, MEAN_TOL = 1e-4, 0.01, 0.05
-# The glass sphere adds the transmitted path, with more thresholds.
-GLASS_ATOL, GLASS_FRAC = 2e-4, 0.02
 
 # An H100 SXM's published peaks at its 700 W limit (NVIDIA's data sheet,
 # dense rates): HBM bytes/s, and FP32 FLOP/s outside the tensor cores.
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
-# K1's FP32 operations, counted by hand from csrc/megakernel.cu (add, mul,
-# min, max, compare, select, abs, division, sqrt, rsqrt, sin, cos: 1 each;
-# FMA: 2): one cube or sphere test up to its world distance; the velocity
-# shift of one test; the shading of a segment that goes on (the winner's
-# normal, the draws' conversion, the diffuse lobe, the throughput); one
-# camera ray. Philox and the lattice hash are integer work, not counted.
-K1_OPS_CUBE, K1_OPS_SPHERE, K1_OPS_MOTION = 130, 107, 12
-K1_OPS_SHADE, K1_OPS_CAMERA = 158, 35
 # The traversals (csrc/bvh_common.cuh): a slab test (box_hit) is 32 FP32
 # operations, a Moller-Trumbore test (leaf) 54; K2 tests 8 child slabs per
 # interior node it pops. The bytes a kernel reads of each row: an 8-wide
@@ -232,20 +225,29 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_bytes=nbytes, bound_flops=flops)
 
 
-def k1_bound(cfg, table: torch.Tensor, segments: int) -> dict:
-    """K1's bound for one iteration at `cfg` whose paths traced `segments`
-    live segments: every segment tests every geom; at least segments - N
-    of them shade and go on; each of the N pixels casts one camera ray and
-    reads and writes its 12 accumulator bytes; the table is read once."""
-    from project3_cuda_path_tracer_tpu_torch.scene import types as T
-    n = cfg.width * cfg.height
-    per_seg = sum(K1_OPS_CUBE if t == T.CUBE else K1_OPS_SPHERE
-                  for t in cfg.geom_types)
-    if cfg.motion:
-        per_seg += K1_OPS_MOTION * len(cfg.geom_types)
-    flops = (segments * per_seg + max(segments - n, 0) * K1_OPS_SHADE
-             + n * K1_OPS_CAMERA)
-    return bound(24 * n + 4 * table.numel(), flops)
+def k1_bound(path: str, cfg, sampler: str) -> dict:
+    """K1's bound for one iteration of the scene at `path` (at `cfg`):
+    portbench/harness/roofline_k1.py's operations, on the segments of the
+    benchmark's plain reference tracing iteration 0 of the lattice on a
+    1-in-16 pixel lattice (scaled by 16), with `sampler`'s draws."""
+    sys.path.insert(0, os.path.join(ROOT, "portbench"))
+    from harness import roofline_k1
+    from reference import scene as RS
+    from reference import texenv as TX
+    ts = TX.load(path)
+    tab = TX.Tables(ts, torch.device("cuda"))
+    sc, n = ts.scene, cfg.width * cfg.height
+    pix = torch.arange(0, n, 16, device="cuda")
+    counts = {k: [16 * v for v in c] for k, c in roofline_k1.segment_counts(
+        tab, pix, 0, cfg.trace_depth).items()}
+    w = roofline_k1.k1_work(
+        n, counts, ["cube" if g.kind == RS.CUBE else "sphere"
+                    for g in sc.geoms],
+        motion=bool(cfg.motion), lens=bool(cfg.dof), sampler=sampler,
+        table_floats=roofline_k1.table_floats(
+            len(sc.geoms), len(sc.materials["emittance"])))
+    return dict(bound(w["bytes"], w["flops"]),
+                reference_live_segments=sum(counts["live"]))
 
 
 class RowLog:
@@ -346,10 +348,10 @@ def compare_lanes(tag: str, got: torch.Tensor, want: torch.Tensor,
     return rec
 
 
-def kernel_vs_plain(scene, sampler: str, iteration: int, atol: float,
-                    frac: float, tag: str, seed_np: int = 0) -> dict:
+def kernel_vs_plain(scene, sampler: str, iteration: int, tag: str,
+                    seed_np: int = 0) -> dict:
     """One iteration through the wrapper (kernel) and iteration_plain on the
-    same inputs, on the card."""
+    same inputs, on the card: equal bit for bit."""
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.render.integrator import \
         build_trace_config
@@ -370,7 +372,15 @@ def kernel_vs_plain(scene, sampler: str, iteration: int, atol: float,
     want = mk.iteration_plain(torch.zeros(shape, device=dev), table, cfg,
                               iteration, 0, sampler, cam_u, u)
     torch.cuda.synchronize()
-    return compare_lanes(tag, got, want, atol, frac)
+    differ = int((got != want).any(-1).sum())
+    rec = dict(check=tag, lanes=int(got[..., 0].numel()), differ=differ,
+               max_abs_err=float((got - want).abs().max()),
+               mean=float(got.mean()))
+    log(json.dumps(rec))
+    if differ or not bool(torch.isfinite(got).all()) or rec["mean"] <= 0:
+        raise AssertionError(f"{tag}: {differ} lanes differ from the plain "
+                             "version")
+    return rec
 
 
 def time_ms(fn, iters: int, warm: int = 3) -> float:
@@ -648,7 +658,7 @@ def k1_timing(gpu: str, table: torch.Tensor, cfg) -> dict:
     if any(r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1)
            for r in instances):
         raise AssertionError("a K1 instance spills (or ptxas gave no report)")
-    k1 = k1_bound(cfg, table, segments)
+    k1 = k1_bound(SCENE, cfg, "philox")
     n_whd = cfg.width * cfg.height * cfg.trace_depth
     ms = {k: float(np.mean(v)) for k, v in runs.items()}
     ms_unheld = {k: float(np.mean(v)) for k, v in unheld.items()}
@@ -4648,17 +4658,20 @@ def main() -> int:
                                    for k, v in libs.items()})))
 
     # ---- 3. kernel vs plain, injected uniforms ----------------------------
-    kernel_vs_plain(sized(SCENE, 64, 8), "uniforms", 0, ATOL, FRAC,
+    kernel_vs_plain(sized(SCENE, 64, 8), "uniforms", 0,
                     "uniforms cornell 64x64 d8", seed_np=1)
-    kernel_vs_plain(sized(GLASS, 64, 4), "uniforms", 0, GLASS_ATOL,
-                    GLASS_FRAC, "uniforms glass 64x64 d4", seed_np=3)
-    main_cmp = kernel_vs_plain(sized(SCENE, 800, 8), "uniforms", 0, ATOL,
-                               FRAC, "uniforms cornell 800x800 d8",
-                               seed_np=2)
+    kernel_vs_plain(sized(GLASS, 64, 4), "uniforms", 0,
+                    "uniforms glass 64x64 d4", seed_np=3)
+    main_cmp = kernel_vs_plain(sized(SCENE, 800, 8), "uniforms", 0,
+                               "uniforms cornell 800x800 d8", seed_np=2)
+    kernel_vs_plain(sized(GLASS, 800, 8), "uniforms", 0,
+                    "uniforms glass 800x800 d8", seed_np=4)
 
     # ---- 4. kernel vs plain, stratified sampler ---------------------------
-    kernel_vs_plain(sized(SCENE, 128, 8), "stratified", 3, ATOL, FRAC,
+    kernel_vs_plain(sized(SCENE, 128, 8), "stratified", 3,
                     "stratified cornell 128x128 d8 it3")
+    kernel_vs_plain(sized(GLASS, 800, 8), "stratified", 5,
+                    "stratified glass 800x800 d8 it5")
 
     # ---- 5. Philox sampler ------------------------------------------------
     from project3_cuda_path_tracer_tpu_torch.render.integrator import \

@@ -317,7 +317,8 @@ def _program_record() -> dict:
     and `graph_nodes`, each captured graph's nodes and kernel nodes by
     graph name; and the hand kernels' counts (utils/launches):
     `launches`, the wrappers' counters, and `device_launches`, the
-    kernels' own tallies on the card (graph replays included)."""
+    kernels' own tallies on the card (graph replays included; K1's live
+    segments and lane slots under `k1_segments` and `k1_slots`)."""
     from ..utils import launches, profiling
     c = profiling.counters()
     graphs = sorted(k[:-len(".graph_nodes")] for k in c

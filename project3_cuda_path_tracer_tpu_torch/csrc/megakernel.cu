@@ -11,12 +11,34 @@
 // the normalisation floor, the zero-component slab guard) this kernel
 // follows the wavefront.
 //
+// Bit for bit with that chain on the card, as kernels I1 (csrc/prim_hit.cu)
+// and S1 (csrc/shade.cu) are with their stages: every float operation is
+// one IEEE-rounded intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn),
+// so that nvcc's default contraction cannot fuse a pair, in the chain's
+// order (vec.dot's and vec.xform_pt's left-to-right sums); a division by a
+// Python float as ATen computes it on CUDA, a product with the float
+// reciprocal; `1.0 / x` as the reciprocal; the libdevice functions ATen's
+// kernels call (sqrtf, rsqrtf, cosf, sinf, fmodf). Contracted, the kernel
+// rendered cornell 0.29% darker than the chain (ROADMAP F11): the backed-
+// off points off the rotated back wall landed inside it more often. Two
+// operations take a cheaper form that gives the chain's result on every
+// input the kernel meets:
+//  - torch.minimum / maximum / clamp as fminf / fmaxf: they differ only on
+//    a NaN operand, and a finite ray in a finite scene makes none;
+//  - `_fma` (the chain's float64 product and sum, rounded to float32) as
+//    fmaf: the two differ only where the float64 sum rounds onto a float32
+//    halfway point (a double rounding), about one inexact sum in 2^29;
+//    none showed over cornell's and cornell_glass's 800x800 frames
+//    (PERF.md).
+//
 // What bounds it on an H100: the FP32 issue rate. A live path segment costs
-// ~110-130 FP32 operations per primitive test (7 tests on cornell) plus
-// ~170 for the winner's attributes and the lobe, while a pixel moves only
-// its 12 accumulator bytes in and out: at 800x800, depth 8, ~2.5 M live
-// segments need ~2.7 GFLOP (0.04 ms at 67 TFLOP/s) against 15 MB (0.005 ms
-// at 3.35 TB/s). What keeps it from that rate: paths end at different
+// 70-94 FP32 operations per primitive test (7 tests on cornell), 36 more
+// for each test that hits (about one a segment), ~160 for the winner's
+// attributes and ~100-130 for the lobe, while a pixel moves only its 12
+// accumulator bytes in and out: at 800x800, depth 8, ~2.5 M live segments
+// need ~2.2 GFLOP (0.033 ms at 67 TFLOP/s; the hand counts are
+// portbench/harness/roofline_k1.py's) against 15 MB (0.005 ms at
+// 3.35 TB/s). What keeps it from that rate: paths end at different
 // bounces, and a lane whose path has ended idles until its warp's last path
 // ends; the scene's scalars are read one by one from shared memory, which
 // issues a quarter as many instructions per clock as the FP32 units; and
@@ -48,6 +70,12 @@
 //    only its own draws, and no velocity shift without motion.
 //  - __launch_bounds__ caps registers at the fewest without spills
 //    (chip_smoke.py prints each instance's registers and spills).
+//  - The bounce steps' busy and total lane slots (the busy ones are the
+//    live segments traced) go to `stats` when the launch is given it (the
+//    renderer's launches give the device tally's `k1_segments` and
+//    `k1_slots`, utils/launches.py): each warp's first lane adds the
+//    bounce's ballot count to a shared sum, and each block adds its sums
+//    once at its end.
 //
 // Random numbers, chosen by `SAMPLER`:
 //   0 Philox4x32-10, key (seed, 0), counter (pixel, iteration, bounce, draw);
@@ -88,10 +116,16 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 // many of its 32 are dead (a sweep of 1-32 on cornell 800x800 d8: PERF.md).
 constexpr int REFILL = 4;
 
+// the chain's Python floats as ATen takes them: rounded to float32
 constexpr float BIG = 1e30f;
 constexpr float RAY_EPS = 1e-4f;
-constexpr float TWO_PI = 6.2831853071795864769252867665590057683943f;
-constexpr float SQRT_OF_ONE_THIRD = 0.5773502691896257645091487805019574556476f;
+constexpr float PUSH = static_cast<float>(2.0 * 1e-4);  // 2 * RAY_EPS
+constexpr float NZ = 1e-12f;
+constexpr float D2_FLOOR = static_cast<float>(1e-12);
+constexpr float P_FLOOR = static_cast<float>(1e-6);
+constexpr float COS_FLOOR = static_cast<float>(1e-20);
+constexpr float TWO_PI = static_cast<float>(6.2831853071795864769);
+constexpr float SQRT_OF_ONE_THIRD = static_cast<float>(0.5773502691896257645);
 
 constexpr unsigned CAMERA_SLOT = 0x7FFFFFFFu;
 constexpr unsigned SALT_AA = 0x68BC21EBu;
@@ -103,34 +137,56 @@ constexpr float R4A0 = 0.8566748838545029f, R4A1 = 0.7338918566271259f;
 constexpr float R4A2 = 0.6287067210378086f, R4A3 = 0.5385972572236101f;
 constexpr float PHI_INV = 0.6180339887498949f;
 
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float dvd(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+// torch.clamp's (no operand is NaN: see above)
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
 struct V3 {
   float x, y, z;
 };
 
 __device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+// vec.dot: the terms summed left to right
 __device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
+  return add(add(mul(a.x, b.x), mul(a.y, b.y)), mul(a.z, b.z));
 }
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
+  return v3(sub(mul(a.y, b.z), mul(a.z, b.y)),
+            sub(mul(a.z, b.x), mul(a.x, b.z)),
+            sub(mul(a.x, b.y), mul(a.y, b.x)));
 }
-// Double-where floor of ops/vec.normalize: near-zero vectors pass unscaled.
+// vec.normalize: a * rsqrt(d2 > 1e-12 ? d2 : 1); near-zero vectors pass
+// unscaled
 __device__ __forceinline__ V3 normalize(V3 a) {
-  float d2 = dot(a, a);
-  float s = rsqrtf(d2 > 1e-12f ? d2 : 1.0f);
-  return v3(a.x * s, a.y * s, a.z * s);
+  const float d2 = dot(a, a);
+  const float s = rsqrtf(d2 > D2_FLOOR ? d2 : 1.0f);
+  return v3(mul(a.x, s), mul(a.y, s), mul(a.z, s));
 }
-// A row-major 3x4 affine block as three float4 rows.
+// One row of vec.xform_pt / vec.xform_dir of a row-major 3x4 affine block.
+__device__ __forceinline__ float row_pt(float4 r, V3 p) {
+  return add(add(add(mul(r.x, p.x), mul(r.y, p.y)), mul(r.z, p.z)), r.w);
+}
+__device__ __forceinline__ float row_dir(float4 r, V3 v) {
+  return add(add(mul(r.x, v.x), mul(r.y, v.y)), mul(r.z, v.z));
+}
 __device__ __forceinline__ V3 xform_pt(float4 r0, float4 r1, float4 r2, V3 p) {
-  return v3(r0.x * p.x + r0.y * p.y + r0.z * p.z + r0.w,
-            r1.x * p.x + r1.y * p.y + r1.z * p.z + r1.w,
-            r2.x * p.x + r2.y * p.y + r2.z * p.z + r2.w);
+  return v3(row_pt(r0, p), row_pt(r1, p), row_pt(r2, p));
 }
 __device__ __forceinline__ V3 xform_dir(float4 r0, float4 r1, float4 r2, V3 v) {
-  return v3(r0.x * v.x + r0.y * v.y + r0.z * v.z,
-            r1.x * v.x + r1.y * v.y + r1.z * v.z,
-            r2.x * v.x + r2.y * v.y + r2.z * v.z);
+  return v3(row_dir(r0, v), row_dir(r1, v), row_dir(r2, v));
 }
 
 // ---- random numbers -------------------------------------------------------
@@ -148,7 +204,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 }
 // top 24 bits -> [0, 1)
 __device__ __forceinline__ float u01(unsigned x) {
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
+  return mul((float)(x >> 8), 1.0f / 16777216.0f);
 }
 
 // ops/wavefront._hash01 in native uint32
@@ -157,15 +213,12 @@ __device__ __forceinline__ float hash01(unsigned x, unsigned salt) {
   x = (x ^ (x >> 16)) * 0x45D9F3Bu;
   x = (x ^ (x >> 16)) * 0x45D9F3Bu;
   x = x ^ (x >> 16);
-  return (float)(x & 0x00FFFFFFu) * (1.0f / 16777216.0f);
+  return mul((float)(x & 0x00FFFFFFu), 1.0f / 16777216.0f);
 }
-// One stratified_planes dimension: fmod(0.5 + it*alpha + hash, 1), rounded
-// op by op (no FMA contraction) so it equals the torch version bitwise.
+// One stratified_planes dimension: fmod(0.5 + it*alpha + hash, 1).
 __device__ __forceinline__ float lattice(float it_f, float alpha,
                                          unsigned mix, unsigned salt) {
-  float v = __fadd_rn(__fadd_rn(0.5f, __fmul_rn(it_f, alpha)),
-                      hash01(mix, salt));
-  return fmodf(v, 1.0f);
+  return fmodf(add(add(0.5f, mul(it_f, alpha)), hash01(mix, salt)), 1.0f);
 }
 
 // ---- launch arguments and the scene in shared memory ----------------------
@@ -200,25 +253,19 @@ struct PathState {
 
 // ---- one primitive --------------------------------------------------------
 
-__device__ __forceinline__ float nz(float c) {
-  return fabsf(c) < 1e-12f ? (c < 0.0f ? -1e-12f : 1e-12f) : c;
+// wavefront._nz then `1.0 / c`: the reciprocal (times 1.0, exact)
+__device__ __forceinline__ float inv_nz(float c) {
+  return dvd(1.0f, fabsf(c) < NZ ? (c < 0.0f ? -NZ : NZ) : c);
 }
 
-// ops/wavefront._primitive_hit_planar up to the world distance: the object-
-// space ray, the object-space hit, and for a cube the face normal (dead code
-// where the caller does not read it).
+// ops/wavefront._primitive_hit_planar up to the world distance: the
+// velocity shift, the object-space ray, the object-space hit, and for a
+// cube the face normal (dead code where the caller does not read it).
 struct LocalHit {
-  V3 qo, qd, nl;
+  V3 qo, qd, nl, vt;
   float t_obj;
   bool hit, outside;
 };
-
-template <bool MOTION>
-__device__ __forceinline__ V3 geom_vel(const float4* gr) {
-  if (!MOTION) return v3(0.0f, 0.0f, 0.0f);
-  const float4 w = gr[8];  // ivt[8], velocity
-  return v3(w.y, w.z, w.w);
-}
 
 template <bool MOTION>
 __device__ __forceinline__ LocalHit local_hit(const float4* gr, V3 o, V3 d,
@@ -226,44 +273,46 @@ __device__ __forceinline__ LocalHit local_hit(const float4* gr, V3 o, V3 d,
   LocalHit L;
   const bool cube = (int)gr[9].x == CUBE;
   V3 osh = o;
-  if (MOTION) {
-    const V3 vel = geom_vel<MOTION>(gr);
-    osh = v3(o.x - vel.x * tm, o.y - vel.y * tm, o.z - vel.z * tm);
+  L.vt = v3(0.0f, 0.0f, 0.0f);
+  if (MOTION) {  // ivt[8], velocity
+    const float4 w = gr[8];
+    L.vt = v3(mul(w.y, tm), mul(w.z, tm), mul(w.w, tm));
+    osh = v3(sub(o.x, L.vt.x), sub(o.y, L.vt.y), sub(o.z, L.vt.z));
   }
   const float4 i0 = gr[0], i1 = gr[1], i2 = gr[2];
   L.qo = xform_pt(i0, i1, i2, osh);
   L.qd = normalize(xform_dir(i0, i1, i2, d));
   const V3 qo = L.qo, qd = L.qd;
-  if (cube) {  // slab test, src/intersections.h:48-90
-    float ix = 1.0f / nz(qd.x), iy = 1.0f / nz(qd.y), iz = 1.0f / nz(qd.z);
-    float t1x = (-0.5f - qo.x) * ix, t2x = (0.5f - qo.x) * ix;
-    float t1y = (-0.5f - qo.y) * iy, t2y = (0.5f - qo.y) * iy;
-    float t1z = (-0.5f - qo.z) * iz, t2z = (0.5f - qo.z) * iz;
-    float tax = fminf(t1x, t2x), tbx = fmaxf(t1x, t2x);
-    float tay = fminf(t1y, t2y), tby = fmaxf(t1y, t2y);
-    float taz = fminf(t1z, t2z), tbz = fmaxf(t1z, t2z);
-    float tpx = tax > 0.0f ? tax : -BIG;
-    float tpy = tay > 0.0f ? tay : -BIG;
-    float tpz = taz > 0.0f ? taz : -BIG;
-    float tmin = fmaxf(tpx, fmaxf(tpy, tpz));
-    float tmax = fminf(tbx, fminf(tby, tbz));
-    L.hit = (tmax >= tmin) && (tmax > 0.0f);
-    L.outside = tmin > 0.0f;
-    L.t_obj = L.outside ? tmin : tmax;
-    bool ex = L.outside ? (tpx == tmin) : (tbx == tmax);
-    bool ey = !ex && (L.outside ? (tpy == tmin) : (tby == tmax));
-    bool ez = !(ex || ey);
+  if (cube) {  // _box_local_planar (src/intersections.h:48-90)
+    const float ix = inv_nz(qd.x), iy = inv_nz(qd.y), iz = inv_nz(qd.z);
+    const float t1x = mul(sub(-0.5f, qo.x), ix), t2x = mul(sub(0.5f, qo.x), ix);
+    const float t1y = mul(sub(-0.5f, qo.y), iy), t2y = mul(sub(0.5f, qo.y), iy);
+    const float t1z = mul(sub(-0.5f, qo.z), iz), t2z = mul(sub(0.5f, qo.z), iz);
+    const float tax = fminf(t1x, t2x), tbx = fmaxf(t1x, t2x);
+    const float tay = fminf(t1y, t2y), tby = fmaxf(t1y, t2y);
+    const float taz = fminf(t1z, t2z), tbz = fmaxf(t1z, t2z);
+    const float tpx = tax > 0.0f ? tax : -BIG;
+    const float tpy = tay > 0.0f ? tay : -BIG;
+    const float tpz = taz > 0.0f ? taz : -BIG;
+    const float tmn = fmaxf(tpx, fmaxf(tpy, tpz));
+    const float tmx = fminf(tbx, fminf(tby, tbz));
+    L.hit = (tmx >= tmn) && (tmx > 0.0f);
+    L.outside = tmn > 0.0f;
+    L.t_obj = L.outside ? tmn : tmx;
+    const bool ex = L.outside ? (tpx == tmn) : (tbx == tmx);
+    const bool ey = !ex && (L.outside ? (tpy == tmn) : (tby == tmx));
+    const bool ez = !(ex || ey);
     L.nl = v3(ex ? (t2x < t1x ? 1.0f : -1.0f) : 0.0f,
               ey ? (t2y < t1y ? 1.0f : -1.0f) : 0.0f,
               ez ? (t2z < t1z ? 1.0f : -1.0f) : 0.0f);
-  } else {  // r = 0.5 sphere, src/intersections.h:102-144
-    float vdd = dot(qo, qd);
-    float radicand = vdd * vdd - (dot(qo, qo) - 0.25f);
-    bool has_root = radicand >= 0.0f;
-    float s = sqrtf(has_root ? fmaxf(radicand, 0.0f) : 1.0f);
-    float t1 = -vdd + s, t2 = -vdd - s;
-    bool both_neg = (t1 < 0.0f) && (t2 < 0.0f);
-    bool both_pos = (t1 > 0.0f) && (t2 > 0.0f);
+  } else {  // _sphere_local_planar, r = 0.5 (src/intersections.h:102-144)
+    const float vdd = dot(qo, qd);
+    const float radicand = sub(mul(vdd, vdd), sub(dot(qo, qo), 0.25f));
+    const bool has_root = radicand >= 0.0f;
+    const float s = sqrtf(has_root ? fmaxf(radicand, 0.0f) : 1.0f);
+    const float t1 = add(-vdd, s), t2 = sub(-vdd, s);
+    const bool both_neg = (t1 < 0.0f) && (t2 < 0.0f);
+    const bool both_pos = (t1 > 0.0f) && (t2 > 0.0f);
     L.t_obj = both_pos ? fminf(t1, t2) : fmaxf(t1, t2);
     L.hit = has_root && !both_neg;
     L.outside = both_pos;
@@ -272,23 +321,18 @@ __device__ __forceinline__ LocalHit local_hit(const float4* gr, V3 o, V3 d,
   return L;
 }
 
-// Object-space point -> world (forward rows, then the velocity shift).
+// The object-space point at `t` on the ray (the chain's `_fma`, see above;
+// into `*obj` when given), taken to the world by the forward rows and
+// shifted back by the velocity.
 template <bool MOTION>
-__device__ __forceinline__ V3 to_world(const float4* gr, V3 p, float tm) {
-  V3 w = xform_pt(gr[3], gr[4], gr[5], p);
-  if (MOTION) {
-    const V3 vel = geom_vel<MOTION>(gr);
-    w = v3(w.x + vel.x * tm, w.y + vel.y * tm, w.z + vel.z * tm);
-  }
+__device__ __forceinline__ V3 world_at(const float4* gr, const LocalHit& L,
+                                       float t, V3* obj = nullptr) {
+  const V3 q = v3(__fmaf_rn(t, L.qd.x, L.qo.x), __fmaf_rn(t, L.qd.y, L.qo.y),
+                  __fmaf_rn(t, L.qd.z, L.qo.z));
+  if (obj != nullptr) *obj = q;
+  V3 w = xform_pt(gr[3], gr[4], gr[5], q);
+  if (MOTION) w = v3(add(w.x, L.vt.x), add(w.y, L.vt.y), add(w.z, L.vt.z));
   return w;
-}
-
-// Hit points as fused multiply-adds (ops/wavefront._fma): in object space
-// t*dir reaches ~1e3 on thin slabs, where a separately rounded product would
-// eat the 1e-4 back-off.
-__device__ __forceinline__ V3 ray_at(const LocalHit& L, float t) {
-  return v3(fmaf(t, L.qd.x, L.qo.x), fmaf(t, L.qd.y, L.qo.y),
-            fmaf(t, L.qd.z, L.qo.z));
 }
 
 // ---- the path -------------------------------------------------------------
@@ -340,24 +384,29 @@ __device__ __forceinline__ PathState start_path(const Params& p,
   // ---- ray generation (src/pathtrace.cu:122-143) -------------------------
   float x = (float)(i % p.width), y = (float)(i / p.width);
   if (p.antialias) {
-    x = x + cu[0];
-    y = y + cu[1];
+    x = add(x, cu[0]);
+    y = add(y, cu[1]);
   }
-  float sx = h3.z * (x - (float)p.width * 0.5f);
-  float sy = h3.w * (y - (float)p.height * 0.5f);
-  V3 d = normalize(v3(view.x - right.x * sx - up.x * sy,
-                      view.y - right.y * sx - up.y * sy,
-                      view.z - right.z * sx - up.z * sy));
+  // `x - width * 0.5`: the Python float is exact in float32
+  const float sx = mul(h3.z, sub(x, (float)p.width * 0.5f));
+  const float sy = mul(h3.w, sub(y, (float)p.height * 0.5f));
+  V3 d = normalize(v3(sub(sub(view.x, mul(right.x, sx)), mul(up.x, sy)),
+                      sub(sub(view.y, mul(right.y, sx)), mul(up.y, sy)),
+                      sub(sub(view.z, mul(right.z, sx)), mul(up.z, sy))));
   V3 o = pos;
   if (p.dof) {
-    float r = sqrtf(cu[2]) * aperture;
-    float phi = cu[3] * TWO_PI;
-    float lr = r * cosf(phi), lu = r * sinf(phi);
-    V3 o_dof = v3(o.x + right.x * lr + up.x * lu, o.y + right.y * lr + up.y * lu,
-                  o.z + right.z * lr + up.z * lu);
-    float f = fmaxf(focal, 1e-6f);
-    V3 focus = v3(o.x + d.x * f, o.y + d.y * f, o.z + d.z * f);
-    V3 d_dof = normalize(v3(focus.x - o_dof.x, focus.y - o_dof.y, focus.z - o_dof.z));
+    const float r = mul(sqrtf(cu[2]), aperture);
+    const float phi = mul(cu[3], TWO_PI);
+    const float lr = mul(r, cosf(phi)), lu = mul(r, sinf(phi));
+    const V3 o_dof = v3(add(add(o.x, mul(right.x, lr)), mul(up.x, lu)),
+                        add(add(o.y, mul(right.y, lr)), mul(up.y, lu)),
+                        add(add(o.z, mul(right.z, lr)), mul(up.z, lu)));
+    const float f = fmaxf(focal, P_FLOOR);
+    const V3 focus = v3(add(o.x, mul(d.x, f)), add(o.y, mul(d.y, f)),
+                        add(o.z, mul(d.z, f)));
+    const V3 d_dof = normalize(v3(sub(focus.x, o_dof.x),
+                                  sub(focus.y, o_dof.y),
+                                  sub(focus.z, o_dof.z)));
     if (aperture > 0.0f && focal > 0.0f) {
       o = o_dof;
       d = d_dof;
@@ -368,7 +417,7 @@ __device__ __forceinline__ PathState start_path(const Params& p,
   st.d = d;
   st.thr = v3(1.0f, 1.0f, 1.0f);
   st.rad = v3(0.0f, 0.0f, 0.0f);
-  st.tm = MOTION ? cu[4] * shutter : 0.0f;
+  st.tm = MOTION ? mul(cu[4], shutter) : 0.0f;
   st.pixel = i;
   st.b = 0;
   return st;
@@ -376,14 +425,16 @@ __device__ __forceinline__ PathState start_path(const Params& p,
 
 __device__ __forceinline__ void finish(const Params& p, const PathState& st) {
   float* a = p.accum + (size_t)3 * st.pixel;
-  a[0] += st.rad.x;
-  a[1] += st.rad.y;
-  a[2] += st.rad.z;
+  a[0] = add(a[0], st.rad.x);
+  a[1] = add(a[1], st.rad.y);
+  a[2] = add(a[2], st.rad.z);
 }
 
 // One segment of the path: nearest hit, emission or miss, the lobe, the
-// next ray. Adds the path's radiance to the accumulator and returns false
-// when the path ends.
+// next ray (ops/wavefront.shade_planar's step, as kernel S1 runs it).
+// Adds the path's radiance to the accumulator and returns false when the
+// path ends. A miss collects nothing: the kernel's scenes have a black
+// environment (ops/megakernel.supports).
 template <int SAMPLER, bool MOTION>
 __device__ __forceinline__ bool bounce(const Params& p, const float4* s4,
                                        int G, PathState& st) {
@@ -395,45 +446,49 @@ __device__ __forceinline__ bool bounce(const Params& p, const float4* s4,
   for (int g = 0; g < G; ++g) {
     const float4* gr = geom_rec(s4, g);
     const LocalHit L = local_hit<MOTION>(gr, o, d, tm);
-    const V3 ipw = to_world<MOTION>(gr, ray_at(L, L.t_obj - RAY_EPS), tm);
-    const V3 dw = v3(o.x - ipw.x, o.y - ipw.y, o.z - ipw.z);
-    const float t_world = sqrtf(dot(dw, dw));
-    if (L.hit && t_world < best_t) {
+    if (!L.hit) continue;  // its distance could not win
+    const V3 ipw = world_at<MOTION>(gr, L, sub(L.t_obj, RAY_EPS));
+    const float t_world =
+        sqrtf(dot(v3(sub(o.x, ipw.x), sub(o.y, ipw.y), sub(o.z, ipw.z)),
+                  v3(sub(o.x, ipw.x), sub(o.y, ipw.y), sub(o.z, ipw.z))));
+    if (t_world < best_t) {
       best_t = t_world;
       best_g = g;
     }
   }
-  // a miss ends the path on the black background
+  // a miss (t marked -1, or a zero distance) ends the path on black
   if (!(best_t < BIG && best_t > 0.0f)) {
     finish(p, st);
     return false;
   }
 
-  // ---- the winner's attributes, by the loop's expressions ----------------
+  // ---- the winner's record, by the loop's expressions --------------------
   const float4* gr = geom_rec(s4, best_g);
   const LocalHit L = local_hit<MOTION>(gr, o, d, tm);
-  const V3 ip = ray_at(L, L.t_obj - RAY_EPS);
-  const V3 point = to_world<MOTION>(gr, ip, tm);
+  V3 ip;
+  const V3 point = world_at<MOTION>(gr, L, sub(L.t_obj, RAY_EPS), &ip);
   const float4 ivt0 = gr[6], ivt1 = gr[7], ivt2 = gr[8];
   V3 nl = L.nl;
   if ((int)gr[9].x != CUBE) {
     const float flip = L.outside ? 1.0f : -1.0f;
-    nl = v3(ip.x * flip, ip.y * flip, ip.z * flip);
+    nl = v3(mul(ip.x, flip), mul(ip.y, flip), mul(ip.z, flip));
   }
-  const V3 n_ = normalize(v3(ivt0.x * nl.x + ivt0.y * nl.y + ivt0.z * nl.z,
-                             ivt0.w * nl.x + ivt1.x * nl.y + ivt1.y * nl.z,
-                             ivt1.z * nl.x + ivt1.w * nl.y + ivt2.x * nl.z));
+  // the inverse-transpose rows: ivt[0:3], ivt[3:6], ivt[6:9]
+  const V3 n_ = normalize(v3(
+      row_dir(make_float4(ivt0.x, ivt0.y, ivt0.z, 0.0f), nl),
+      row_dir(make_float4(ivt0.w, ivt1.x, ivt1.y, 0.0f), nl),
+      row_dir(make_float4(ivt1.z, ivt1.w, ivt2.x, 0.0f), nl)));
   const bool outside = L.outside;
 
   const float4* mr = mat_rec(s4, G, (int)gr[9].y);
   const float4 m0 = mr[0], m1 = mr[1];
   const V3 albedo = v3(m0.x, m0.y, m0.z);
   const float emit = m1.z;
-  // emission ends the path
+  // emission ends the path: radiance += throughput * albedo * emittance
   if (emit > 0.0f) {
-    st.rad.x += st.thr.x * albedo.x * emit;
-    st.rad.y += st.thr.y * albedo.y * emit;
-    st.rad.z += st.thr.z * albedo.z * emit;
+    st.rad = v3(add(st.rad.x, mul(mul(st.thr.x, albedo.x), emit)),
+                add(st.rad.y, mul(mul(st.thr.y, albedo.y), emit)),
+                add(st.rad.z, mul(mul(st.thr.z, albedo.z), emit)));
     finish(p, st);
     return false;
   }
@@ -464,67 +519,71 @@ __device__ __forceinline__ bool bounce(const Params& p, const float4* s4,
     uf = u01(r.w);
   }
 
-  // ---- scatter (src/interactions.h:44-79) -----------------------------
+  // ---- scatter (src/interactions.h:44-79): the chosen lobe alone ---------
+  // (the table holds p_refr, p_spec, p_diff as the chain computes them)
   const float4 m2 = mr[2];
   const float ior = m2.y, p_refr = m2.z, p_spec = m2.w;
   const bool take_refr = ul < p_refr;
-  const bool take_spec = !take_refr && ul < p_refr + p_spec;
-  const float k2 = 2.0f * dot(d, n_);
-  const V3 d_spec = v3(d.x - k2 * n_.x, d.y - k2 * n_.y, d.z - k2 * n_.z);
+  const bool take_spec = !take_refr && ul < add(p_refr, p_spec);
   V3 nd;
-  float fs;  // 1 / lobe probability
+  float inv_p;  // 1 / the lobe's probability
   bool transmit = false;
-  if (take_refr) {
-    const float safe_ior = fmaxf(ior, 1e-6f);
-    const float eta = outside ? 1.0f / safe_ior : safe_ior;
-    const float cos_i = fminf(fmaxf(-dot(d, n_), 0.0f), 1.0f);
+  if (take_refr || take_spec) {
+    // the mirror: reflect_planar
+    const float k = mul(2.0f, dot(d, n_));
+    nd = v3(sub(d.x, mul(k, n_.x)), sub(d.y, mul(k, n_.y)),
+            sub(d.z, mul(k, n_.z)));
+  }
+  if (take_refr) {  // Fresnel (Schlick) and the refracted direction
+    const float safe_ior = fmaxf(ior, P_FLOOR);
+    const float eta = outside ? dvd(1.0f, safe_ior) : safe_ior;
+    const float cos_i = clip(-dot(d, n_), 0.0f, 1.0f);
     const float eta_i = outside ? 1.0f : ior;
     const float eta_t = outside ? ior : 1.0f;
-    const float q = (eta_i - eta_t) / (eta_i + eta_t);
-    const float r0 = q * q;
-    const float om = 1.0f - cos_i;
-    const float om2 = om * om;
-    const float fres = r0 + (1.0f - r0) * (om * (om2 * om2));
-    const float sin2_t = eta * eta * fmaxf(1.0f - cos_i * cos_i, 0.0f);
-    const bool refl_instead = sin2_t > 1.0f || uf < fres;
-    if (refl_instead) {
-      nd = d_spec;
-    } else {
-      const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 1e-20f));
-      const float k_r = eta * cos_i - cos_t;
-      nd = v3(eta * d.x + k_r * n_.x, eta * d.y + k_r * n_.y,
-              eta * d.z + k_r * n_.z);
+    const float q = dvd(sub(eta_i, eta_t), add(eta_i, eta_t));
+    const float r0 = mul(q, q);
+    const float om = sub(1.0f, cos_i);
+    const float om2 = mul(om, om);
+    const float fres = add(r0, mul(sub(1.0f, r0), mul(om, mul(om2, om2))));
+    const float sin2_t =
+        mul(mul(eta, eta), fmaxf(sub(1.0f, mul(cos_i, cos_i)), 0.0f));
+    if (!(sin2_t > 1.0f || uf < fres)) {
+      const float cos_t = sqrtf(fmaxf(sub(1.0f, sin2_t), COS_FLOOR));
+      const float k_r = sub(mul(eta, cos_i), cos_t);
+      nd = v3(add(mul(eta, d.x), mul(k_r, n_.x)),
+              add(mul(eta, d.y), mul(k_r, n_.y)),
+              add(mul(eta, d.z), mul(k_r, n_.z)));
       transmit = true;
     }
-    fs = 1.0f / fmaxf(p_refr, 1e-6f);
+    inv_p = dvd(1.0f, fmaxf(p_refr, P_FLOOR));
   } else if (take_spec) {
-    nd = d_spec;
-    fs = 1.0f / fmaxf(p_spec, 1e-6f);
-  } else {  // cosine hemisphere, src/interactions.h:10-42
+    inv_p = dvd(1.0f, fmaxf(p_spec, P_FLOOR));
+  } else {  // cosine_hemisphere_planar, src/interactions.h:10-42
     const float up_ = sqrtf(u1);
-    const float over = sqrtf(fmaxf(1.0f - u1, 0.0f));
-    const float around = u2 * TWO_PI;
+    const float over = sqrtf(fmaxf(sub(1.0f, u1), 0.0f));
+    const float around = mul(u2, TWO_PI);
     const bool px = fabsf(n_.x) < SQRT_OF_ONE_THIRD;
     const bool py = !px && fabsf(n_.y) < SQRT_OF_ONE_THIRD;
     const V3 not_n = v3(px ? 1.0f : 0.0f, py ? 1.0f : 0.0f,
                         (px || py) ? 0.0f : 1.0f);
     const V3 p1 = normalize(cross(n_, not_n));
     const V3 p2 = normalize(cross(n_, p1));
-    const float c = cosf(around) * over, sn = sinf(around) * over;
-    nd = v3(up_ * n_.x + c * p1.x + sn * p2.x, up_ * n_.y + c * p1.y + sn * p2.y,
-            up_ * n_.z + c * p1.z + sn * p2.z);
-    fs = 1.0f / fmaxf(mr[3].x, 1e-6f);  // p_diff
+    const float c = mul(cosf(around), over), sn = mul(sinf(around), over);
+    nd = v3(add(add(mul(up_, n_.x), mul(c, p1.x)), mul(sn, p2.x)),
+            add(add(mul(up_, n_.y), mul(c, p1.y)), mul(sn, p2.y)),
+            add(add(mul(up_, n_.z), mul(c, p1.z)), mul(sn, p2.z)));
+    inv_p = dvd(1.0f, fmaxf(mr[3].x, P_FLOOR));  // p_diff
   }
   nd = normalize(nd);
   const V3 f = (take_refr || take_spec) ? v3(m0.w, m1.x, m1.y) : albedo;
-  st.thr = v3(st.thr.x * (f.x * fs), st.thr.y * (f.y * fs),
-              st.thr.z * (f.z * fs));
+  st.thr = v3(mul(st.thr.x, mul(f.x, inv_p)), mul(st.thr.y, mul(f.y, inv_p)),
+              mul(st.thr.z, mul(f.z, inv_p)));
   // transmitted rays start just past the exact surface point; reflected
   // and diffuse rays at the backed-off point
   if (transmit) {
-    const V3 surf = to_world<MOTION>(gr, ray_at(L, L.t_obj), tm);
-    const float push = 2.0f * RAY_EPS;
-    st.o = v3(surf.x + push * nd.x, surf.y + push * nd.y, surf.z + push * nd.z);
+    const V3 surf = world_at<MOTION>(gr, L, L.t_obj);
+    st.o = v3(add(surf.x, mul(PUSH, nd.x)), add(surf.y, mul(PUSH, nd.y)),
+              add(surf.z, mul(PUSH, nd.z)));
   } else {
     st.o = point;
   }
@@ -551,6 +610,7 @@ megakernel(const __grid_constant__ Params p) {
   const int n = p.width * p.height;
   const int G = (int)s[0];
   const unsigned lane = threadIdx.x & 31u;
+  // the bounce steps' tally, from each warp's first lane
   const bool count = p.stats != nullptr && lane == 0;
   PathState st;
   bool alive;

@@ -14,7 +14,13 @@ pixel counter). `_iteration_grid` launches the same kernel in the first
 port's one-thread-per-pixel schedule; only the A/B and the bitwise check
 (chip_smoke.py, the `cuda` test) call it. Every launch of either schedule
 counts under `k1` (utils/launches.py), and a grid one under `k1_grid`
-too.
+too, and adds its busy and total lane slots (the busy ones are the live
+segments it traced) to the device tally's `k1_segments` and `k1_slots`.
+
+On the card the kernel rounds as the plain version does, op for op, so
+the two agree bit for bit on the "stratified" and "uniforms" samplers
+(scenes of fewer than `integrator.SPHERE_BATCH_MIN` eligible spheres: the
+plain version tests more in one batched pass of other arithmetic).
 
 Samplers (the `sampler` argument):
   "philox"     the kernel draws Philox4x32-10 keyed on the seed, counter
@@ -40,7 +46,7 @@ import torch
 from ..scene import types as T
 from ..utils import cuda_build
 from ..utils.device import stream_counter
-from ..utils.launches import count
+from ..utils.launches import count, tally_address
 
 MAX_GEOMS = 32
 SAMPLERS = {"philox": 0, "stratified": 1, "uniforms": 2}
@@ -311,9 +317,10 @@ def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
             seed: int, sampler: str, cam_u=None, u=None, *,
             stats: Optional[torch.Tensor] = None):
     """Check the inputs and launch one schedule of the kernel on the current
-    stream (CUDA tensors only); count it. `stats`, an int64 [2] tensor on
-    the card, gets the busy and the total lane slots of the bounce steps
-    added."""
+    stream (CUDA tensors only); count it. The busy and the total lane slots
+    of its bounce steps are added to `stats`, an int64 [2] tensor on the
+    card, when given, and else to the device tally's `k1_segments` and
+    `k1_slots`."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {tuple(SCHEDULES)}")
     _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
@@ -333,7 +340,8 @@ def _launch(schedule: str, accum, scene_table, cfg, iteration: int,
                 iteration & 0xFFFFFFFF, seed32(seed, iteration),
                 cam_u.data_ptr() if cam_u is not None else None,
                 u.data_ptr() if u is not None else None)
-        st = stats.data_ptr() if stats is not None else None
+        st = (stats.data_ptr() if stats is not None
+              else tally_address(accum.device, "k1_segments"))
         if schedule == "persistent":
             blocks = _persistent_blocks(
                 accum.device.index, SAMPLERS[sampler], int(cfg.motion),
@@ -386,8 +394,8 @@ def iteration(accum: torch.Tensor, scene_table: torch.Tensor, cfg,
     """accum [H,W,3] += one progressive iteration (in place); returns accum.
 
     CPU tensors take `iteration_plain`; CUDA tensors launch the kernel's
-    persistent schedule on the current stream (no synchronisation) and
-    count it under `k1`."""
+    persistent schedule on the current stream (no synchronisation), count
+    it under `k1` and add its live segments to the `k1_segments` tally."""
     if accum.device.type == "cpu":
         _check_args(accum, scene_table, cfg, iteration, sampler, cam_u, u)
         return iteration_plain(accum, scene_table, cfg, iteration, seed,

@@ -1205,10 +1205,13 @@ class Renderer:
         self.accum.add_(to_image(out, self.cfg))
 
     def step(self) -> None:
-        """One progressive iteration (one sample per pixel), eagerly."""
+        """One progressive iteration (one sample per pixel), eagerly; on the
+        megakernel route one K1 launch, its host side under the span
+        `render.k1`."""
         if self.route == "megakernel":
-            mk.iteration(self.accum, self.table, self.cfg, self.iteration,
-                         self.seed, self.sampler)
+            with span("render.k1"):
+                mk.iteration(self.accum, self.table, self.cfg,
+                             self.iteration, self.seed, self.sampler)
         else:
             self._prepare()
             self._iterate(*self._draws())

@@ -12,7 +12,11 @@ capture as its launches a replay (`utils.device.CapturedGraph.launches`).
 And the kernels of the wavefront route (K2, K3/K4, P1, I1, S1) add one to
 a tally in device memory from their first thread, each time they run,
 eagerly or in a replay (`device_launches`), and so does G1 once a call (its
-pair of passes) in the train step's backward."""
+pair of passes) in the train step's backward. Two slots of the tally count
+no launches: K1 adds to `k1_segments` the live path segments it traced
+(its busy lane slots) and to `k1_slots` the lane slots its warps stepped
+(one add each a block, from each warp's ballot of its live lanes a
+bounce)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -42,10 +46,12 @@ def launch_counts() -> Dict[str, int]:
     return dict(_COUNTS)
 
 
-# the device tallies' slots, each the launches of what `launch_counts`
-# counts under the same key
-TALLY_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad", "prim",
-               "shade", "shade_index")
+# the device tallies' slots: each of LAUNCH_SLOTS the launches of what
+# `launch_counts` counts under the same key, then K1's busy and total lane
+# slots, side by side (its `stats` pair, ops/megakernel._launch)
+LAUNCH_SLOTS = ("k2", "k2_any_hit", "k3_k4", "p1", "mat_grad", "prim",
+                "shade", "shade_index")
+TALLY_SLOTS = LAUNCH_SLOTS + ("k1_segments", "k1_slots")
 _TALLIES: Dict[int, torch.Tensor] = {}  # device index -> int64 [slots]
 
 
@@ -63,14 +69,16 @@ def device_tally(device: torch.device) -> torch.Tensor:
 
 def tally_address(device: torch.device, slot: str) -> int:
     """The device address of the tally's `slot` (K2's any-hit slot follows
-    its `k2` slot: the kernel is given `k2`'s)."""
+    its `k2` slot, and `k1_slots` `k1_segments`: each kernel is given the
+    first's)."""
     tally = device_tally(device)
     return tally.data_ptr() + tally.element_size() * TALLY_SLOTS.index(slot)
 
 
 def device_launches() -> Dict[str, int]:
     """The launches that ran on the cards since the tallies were zeroed, by
-    slot (reads device memory: waits for the queued work)."""
+    slot, and K1's live segments and lane slots under `k1_segments` and
+    `k1_slots` (reads device memory: waits for the queued work)."""
     out = dict.fromkeys(TALLY_SLOTS, 0)
     for tally in _TALLIES.values():
         for slot, v in zip(TALLY_SLOTS, tally.tolist()):

@@ -150,9 +150,11 @@ def test_cli_end_to_end(tmp_path, capsys):
     rec = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
     assert rec["iters"] == 2 and rec["resolution"] == [32, 32]
     assert rec["trace_depth"] == 2 and rec["output"] == str(png)
-    # the program's recorder: K1's route records no span, the CPU
-    # captures no graph
-    assert rec["spans"] == {} and rec["graph_nodes"] == {}
+    # the program's recorder: K1's route records one `render.k1` span an
+    # iteration, the CPU captures no graph
+    assert set(rec["spans"]) == {"render.k1"}
+    assert rec["spans"]["render.k1"]["count"] == 2
+    assert rec["graph_nodes"] == {}
     # the hand kernels' counts, G1's among them (no tally on the CPU)
     assert "mat_grad" in rec["launches"]
     assert rec["device_launches"]["mat_grad"] == 0
